@@ -14,7 +14,8 @@ each of which raises on failure (the script then exits nonzero):
              (examples/online_twinning.py), warm-started with the true
              theta, 12 airframes damaged mid-stream, 40 ticks of 8 samples
              per twin, then predict and scenario requests; the kernels'
-             launch counts are read around this run;
+             launch counts are set to 0 before each of the three paths
+             (tick, predict, scenario) and read after it;
   4. parity  the first 10 ticks again on the CPU (plain versions), per-tick
              losses and admissions held to the card's;
   5. time    each kernel and its plain version at the serving shape.
@@ -46,6 +47,9 @@ FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 (no tensor core)
 GRU_TOL = dict(rtol=0.0, atol=1e-5)        # fp32, sums in another order
 RK4_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)      # backward replays the plain path
+# the kernels each serving path must launch
+PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
+                "scenario": ("rk4_poly",)}
 
 
 def _server_config():
@@ -255,7 +259,7 @@ def _bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_lines(dev, launches, worst):
+def kernel_lines(dev, paths, worst):
     """One entry per kernel at its serving shape: the GRU at the refit
     encoder (F=8 slots x B=8 windows, T=24, D=4, H=32), RK4 at the refit
     decoder (B=64, T=24, n=3, L=35, O=3, m=1).  Neither has a single PyTorch
@@ -279,7 +283,9 @@ def kernel_lines(dev, launches, worst):
             name="gru_scan", route="cuda",
             source="src/repro_torch/csrc/gru_scan.cu",
             replaces="src/repro/kernels/gru/gru.py:27",
-            launches=launches["gru_scan"], max_abs_err=worst["gru_scan"],
+            launches=sum(c["gru_scan"] for c in paths.values()),
+            launches_by_path={p: c["gru_scan"] for p, c in paths.items()},
+            max_abs_err=worst["gru_scan"],
             ms=_device_ms(lambda: gru_scan(*args)),
             plain_ms=_device_ms(lambda: gru_scan_ref(*args)),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -301,7 +307,9 @@ def kernel_lines(dev, launches, worst):
             name="rk4_poly", route="cuda",
             source="src/repro_torch/csrc/rk4_poly.cu",
             replaces="src/repro/kernels/rk4/rk4.py:38",
-            launches=launches["rk4_poly"], max_abs_err=worst["rk4_poly"],
+            launches=sum(c["rk4_poly"] for c in paths.values()),
+            launches_by_path={p: c["rk4_poly"] for p, c in paths.items()},
+            max_abs_err=worst["rk4_poly"],
             ms=_device_ms(kern), plain_ms=_device_ms(plain),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             eager_ms=_eager_ms(kern), plain_eager_ms=_eager_ms(plain),
@@ -311,11 +319,29 @@ def kernel_lines(dev, launches, worst):
     return lines
 
 
-def check_serving(srv, reports, ys):
-    """What the serving run must show: finite losses, at least one promoted
-    refit, the guard flagging damaged airframes, finite predictions and
-    scenario answers, and a prediction equal to the plain version's."""
-    from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
+def counted(paths: dict, path: str, fn):
+    """Drive one serving path with every kernel's launch count set to 0 just
+    before it, record the counts just after, and fail if a kernel the path
+    runs was never launched."""
+    from repro_torch.kernels.gru.ops import gru_scan
+    from repro_torch.kernels.rk4.ops import rk4_poly_solve
+    kernels = {"gru_scan": gru_scan, "rk4_poly": rk4_poly_solve}
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    paths[path] = {name: k.launches for name, k in kernels.items()}
+    print(f"kernel launches on the {path} path: {paths[path]}")
+    for name in PATH_KERNELS[path]:
+        if paths[path][name] == 0:
+            raise RuntimeError(f"{name} was never launched on the {path} "
+                               "path")
+    return out
+
+
+def check_ticks(srv, reports):
+    """What the ticks must show: finite losses, at least one promoted refit
+    and the guard flagging damaged airframes."""
     losses = [r.loss for r in reports if r.loss is not None]
     if not losses or not np.all(np.isfinite(losses)):
         raise RuntimeError(f"refit losses missing or non-finite: {losses}")
@@ -327,10 +353,12 @@ def check_serving(srv, reports, ys):
         raise RuntimeError("no refit was promoted into the theta store")
     if not set(flagged) & set(range(DAMAGED)):
         raise RuntimeError("the guard flagged none of the damaged twins")
-    preds = [srv.predict(tid, 50) for tid in (0, DAMAGED, TWINS - 1)]
-    rng = np.random.default_rng(5)
-    what_if = (0.03 * rng.normal(size=(8, 50, 1))).astype(np.float32)
-    scn = srv.scenario(0, 50, what_if)
+
+
+def check_answers(srv, preds, scn, ys):
+    """Finite predictions and scenario answers of the expected shape, and a
+    prediction equal to the plain version's on the same theta and state."""
+    from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
     for p in preds:
         if p.shape != (51, 3) or not torch.isfinite(p).all():
             raise RuntimeError(f"bad prediction {tuple(p.shape)}")
@@ -401,8 +429,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from repro_torch.kernels import backend
-    from repro_torch.kernels.gru.ops import gru_scan
-    from repro_torch.kernels.rk4.ops import rk4_poly_solve
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -423,15 +449,15 @@ def main() -> int:
 
     print("== 3. serving: 64 F-8 twins on the card")
     ys, us = telemetry(dev)
-    gru_scan.launches = rk4_poly_solve.launches = 0
-    srv, reports = serve(None, ys, us, TICKS)
-    launches = {"gru_scan": gru_scan.launches,
-                "rk4_poly": rk4_poly_solve.launches}
-    print(f"kernel launches during serving: {launches}")
-    for name, count in launches.items():
-        if count == 0:
-            raise RuntimeError(f"{name} was never launched while serving")
-    check_serving(srv, reports, ys)
+    paths = {}
+    srv, reports = counted(paths, "tick", lambda: serve(None, ys, us, TICKS))
+    check_ticks(srv, reports)
+    preds = counted(paths, "predict", lambda: [
+        srv.predict(tid, 50) for tid in (0, DAMAGED, TWINS - 1)])
+    what_if = (0.03 * np.random.default_rng(5).normal(size=(8, 50, 1))
+               ).astype(np.float32)
+    scn = counted(paths, "scenario", lambda: srv.scenario(0, 50, what_if))
+    check_answers(srv, preds, scn, ys)
     lat, stages = srv.latency_summary(), srv.stage_summary()
     print(f"steady-state ticks {lat['ticks']}: p50 {lat['p50_ms']:.2f} ms, "
           f"p99 {lat['p99_ms']:.2f} ms, max {lat['max_ms']:.2f} ms, "
@@ -445,7 +471,7 @@ def main() -> int:
     check_parity(reports, cpu_reports)
 
     print("== 5. kernel times at the serving shapes")
-    lines = kernel_lines(dev, launches, worst)
+    lines = kernel_lines(dev, paths, worst)
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -62,27 +62,24 @@ class GuardInstruments:
     live: object            # Gauge: guard-eligible (deployed + sampled) twins
 
     @staticmethod
-    def create(registry, labels: dict | None = None) -> "GuardInstruments":
-        labels = labels or {}
+    def create(registry) -> "GuardInstruments":
         return GuardInstruments(
             events={kind: registry.counter(
                         "twin_guard_events_total",
                         help="guard state transitions by kind",
-                        labels={**labels, "kind": kind})
+                        labels={"kind": kind})
                     for kind in ("REFIT", "ALERT")},
             score=registry.histogram(
                 "twin_divergence_score",
                 help="raw guard divergence scores (normalized rollout "
                      "error; 1e6 = non-finite blowup)",
-                bounds=DEFAULT_SCORE_BUCKETS, labels=labels),
+                bounds=DEFAULT_SCORE_BUCKETS),
             scored=registry.counter(
                 "twin_guard_scored_total",
-                help="twin scorings performed by the fused guard rollout",
-                labels=labels),
+                help="twin scorings performed by the fused guard rollout"),
             live=registry.gauge(
                 "twin_guard_live",
-                help="guard-eligible twins (deployed with enough samples)",
-                labels=labels))
+                help="guard-eligible twins (deployed with enough samples)"))
 
 
 class DivergenceGuard:

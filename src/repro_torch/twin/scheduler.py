@@ -73,7 +73,7 @@ class SchedulePlan:
 
 @dataclass
 class SchedulerMetrics:
-    """Slot-turnover instruments (obs registry children, one set per shard).
+    """Slot-turnover instruments (obs registry children).
 
     `admitted`/`evicted`/`released` count slot transitions cumulatively;
     `pressure` is the latest aggregate staleness+divergence demand — the
@@ -93,36 +93,36 @@ class SchedulerMetrics:
     queue_entries: object       # Gauge: live bucket-queue entries
 
     @staticmethod
-    def create(registry, labels: dict | None = None) -> "SchedulerMetrics":
+    def create(registry) -> "SchedulerMetrics":
         """Resolve the scheduler's instruments from a `MetricRegistry`."""
         return SchedulerMetrics(
             admitted=registry.counter(
                 "twin_sched_admitted_total",
-                help="twins admitted into refit slots", labels=labels),
+                help="twins admitted into refit slots"),
             evicted=registry.counter(
                 "twin_sched_evicted_total",
-                help="twins preempted out of refit slots", labels=labels),
+                help="twins preempted out of refit slots"),
             released=registry.counter(
                 "twin_sched_released_total",
                 help="twins that released their refit slot (converged, "
-                     "stuck, or federation revoke)", labels=labels),
+                     "stuck, or federation revoke)"),
             pressure=registry.gauge(
                 "twin_sched_pressure",
                 help="aggregate staleness+divergence refit demand "
-                     "(federation rebalance signal)", labels=labels),
+                     "(federation rebalance signal)"),
             plan_seconds=registry.histogram(
                 "twin_sched_plan_seconds",
                 help="schedule-planning wall latency per tick (scoring + "
                      "winner selection, excluding slot-reset application)",
-                unit="seconds", labels=labels),
+                unit="seconds"),
             waiting=registry.gauge(
                 "twin_sched_waiting",
                 help="ready twins waiting for a refit slot (planner queue "
-                     "depth)", labels=labels),
+                     "depth)"),
             queue_entries=registry.gauge(
                 "twin_sched_queue_entries",
                 help="live candidate entries held by the bucketed priority "
-                     "queue after planning", labels=labels))
+                     "queue after planning"))
 
 
 # --------------------------------------------------------------------------- #

@@ -86,7 +86,6 @@ class TwinServerConfig(DeadlineConfig):
     guard_carry: int | None = None    # extra per-tick re-scores of flagged
                                       # twins (default: guard_budget // 4)
     async_ingest: bool = False        # background flush pump (not ported)
-    ingest_depth: int = 2
     staleness_weight: float = 1.0
     divergence_weight: float = 4.0
     evict_margin: float = 0.5
@@ -144,13 +143,12 @@ class TorchInitSource:
 
 class TwinServer:
     def __init__(self, cfg: TwinServerConfig, *, device=None,
-                 seed: int | None = None, init_source=None,
+                 init_source=None,
                  metrics: MetricRegistry | None = None,
-                 tracer: Tracer | None = None,
-                 shard: int | str | None = None):
+                 tracer: Tracer | None = None):
         """`device=None` runs on the CUDA card and raises without one;
         `device="cpu"` runs the plain PyTorch path.  `init_source` supplies
-        random parameters (default: `TorchInitSource(fleet, seed)`)."""
+        random parameters (default: `TorchInitSource(fleet, cfg.seed)`)."""
         if cfg.async_ingest:
             raise NotImplementedError("async_ingest (BackgroundPump) is not "
                                       "ported yet")
@@ -165,7 +163,6 @@ class TwinServer:
         self.device = resolve_device(device)
         self.metrics = MetricRegistry() if metrics is None else metrics
         self.tracer = Tracer(enabled=False) if tracer is None else tracer
-        self._labels = {} if shard is None else {"shard": str(shard)}
         self.span = TelemetryRing.span(cfg.window, cfg.stride,
                                        cfg.windows_per_twin)
         self.min_samples = self.span + 1
@@ -184,8 +181,7 @@ class TwinServer:
         self.scenario_runner = ScenarioRunner(self.fleet.model.lib, m.dt,
                                               cfg.scenario)
         self._rstate = self.ring.init()
-        self._init = (TorchInitSource(self.fleet,
-                                      cfg.seed if seed is None else seed)
+        self._init = (TorchInitSource(self.fleet, cfg.seed)
                       if init_source is None else init_source)
         self._fstate = self._to_device(self._init.fleet_init())
 
@@ -197,8 +193,7 @@ class TwinServer:
             max_residency=cfg.max_residency,
             release_divergence=cfg.release_divergence)
         self.scheduler = PackedRefitScheduler(
-            sched_cfg, metrics=SchedulerMetrics.create(self.metrics,
-                                                       self._labels),
+            sched_cfg, metrics=SchedulerMetrics.create(self.metrics),
             device=self.device)
         # packed arrays are the scheduler's truth: every mutation point
         # below writes BOTH the record and its packed row
@@ -251,93 +246,83 @@ class TwinServer:
         return tree.to(self.device)
 
     def _init_instruments(self) -> None:
-        """Resolve this server's metric children (per-shard labels)."""
-        M, lab = self.metrics, self._labels
+        """Resolve this server's metric children."""
+        M = self.metrics
         self._m_tick = M.histogram(
             "twin_tick_latency_seconds",
-            help="full serving-tick wall latency", unit="seconds",
-            labels=lab)
+            help="full serving-tick wall latency", unit="seconds")
         self._m_stage = {
             s: M.histogram("twin_stage_latency_seconds",
                            help="per-stage serving-tick wall latency",
-                           unit="seconds", labels={**lab, "stage": s})
+                           unit="seconds", labels={"stage": s})
             for s in _STAGES}
         self._m_violations = M.counter(
             "twin_deadline_violations_total",
-            help="ticks whose wall latency exceeded deadline_s", labels=lab)
+            help="ticks whose wall latency exceeded deadline_s")
         self._m_refreshes = M.counter(
             "twin_slot_refreshes_total",
-            help="refit-slot train advances (active slots summed per tick)",
-            labels=lab)
+            help="refit-slot train advances (active slots summed per tick)")
         self._m_dropped = M.counter(
             "twin_dropped_samples_total",
-            help="telemetry samples truncated by flush backlog", labels=lab)
+            help="telemetry samples truncated by flush backlog")
         self._m_overflow = M.counter(
             "twin_flush_overflows_total",
-            help="flush batches that truncated a backlog", labels=lab)
+            help="flush batches that truncated a backlog")
         self._m_prepare = M.histogram(
             "twin_flush_prepare_seconds",
-            help="host-side staging merge/pad latency", unit="seconds",
-            labels=lab)
+            help="host-side staging merge/pad latency", unit="seconds")
         self._m_tracked = M.gauge(
-            "twin_tracked_twins", help="registered tracked objects",
-            labels=lab)
+            "twin_tracked_twins", help="registered tracked objects")
         self._m_deployed = M.gauge(
-            "twin_deployed_twins", help="twins with a serving theta",
-            labels=lab)
+            "twin_deployed_twins", help="twins with a serving theta")
         self._m_active = M.gauge(
-            "twin_active_slots", help="refit slots currently assigned",
-            labels=lab)
+            "twin_active_slots", help="refit slots currently assigned")
         self._m_staging = M.gauge(
             "twin_staging_pending_samples",
-            help="samples staged but not yet flushed", labels=lab)
+            help="samples staged but not yet flushed")
         self._m_degraded = M.gauge(
             "twin_degraded_level",
-            help="deadline-degradation ladder level (0 = full service)",
-            labels=lab)
+            help="deadline-degradation ladder level (0 = full service)")
         self._m_deg_trans = {
             d: M.counter("twin_degraded_transitions_total",
                          help="degradation ladder moves by direction",
-                         labels={**lab, "direction": d})
+                         labels={"direction": d})
             for d in ("up", "down")}
         self._m_shed = {
             a: M.counter("twin_degraded_shed_total",
                          help="ticks that shed a stage under degradation",
-                         labels={**lab, "action": a})
+                         labels={"action": a})
             for a in ("guard", "refit", "promote")}
         self._m_ingest_retries = M.counter(
             "twin_ingest_retries_total",
-            help="ingest backoff retries after a staging overflow",
-            labels=lab)
+            help="ingest backoff retries after a staging overflow")
         self._m_ingest_dropped = M.counter(
             "twin_ingest_dropped_total",
             help="staged samples shed (drop-oldest) by non-strict ingest "
-                 "backpressure", labels=lab)
-        self._guard_obs = GuardInstruments.create(M, lab)
+                 "backpressure")
+        self._guard_obs = GuardInstruments.create(M)
         self._m_scn_latency = M.histogram(
             "twin_scenario_latency_seconds",
             help="what-if query wall latency (ensemble x K fused rollout)",
-            unit="seconds", labels=lab)
+            unit="seconds")
         self._m_scn_requests = M.counter(
             "twin_scenario_requests_total",
-            help="scenario queries answered", labels=lab)
+            help="scenario queries answered")
         self._m_scn_rollouts = M.counter(
             "twin_scenario_rollouts_total",
             help="individual trajectories integrated for scenario queries "
-                 "(effective K x ensemble)", labels=lab)
+                 "(effective K x ensemble)")
         self._m_scn_shrunk = M.counter(
             "twin_scenario_shrunk_total",
             help="scenario queries served with K shrunk by the degradation "
-                 "ladder", labels=lab)
+                 "ladder")
         self._m_scn_refused = M.counter(
             "twin_scenario_refused_total",
-            help="scenario queries refused under deadline pressure",
-            labels=lab)
+            help="scenario queries refused under deadline pressure")
         self._m_scn_confidence = M.histogram(
             "twin_scenario_confidence",
             help="per-scenario ensemble confidence (1 = recent thetas "
-                 "agree)", bounds=(0.1, 0.25, 0.5, 0.75, 0.9, 0.99, 1.0),
-            labels=lab)
+                 "agree)", bounds=(0.1, 0.25, 0.5, 0.75, 0.9, 0.99, 1.0))
 
     # ------------------------------------------------------------------ #
     def register(self, twin_id: int) -> TwinRecord:
@@ -367,14 +352,13 @@ class TwinServer:
             self._live_dirty = True
 
     # ------------------------------------------------------------------ #
-    def ingest(self, twin_id: int, y, u=None, *, force: bool = False):
+    def ingest(self, twin_id: int, y, u=None):
         """Stage telemetry for `twin_id`: y [n] or [C, n], u [m] or [C, m].
 
         Host-side staging only — the device scatter happens once per tick.
         Thread-safe.  A bounded staging buffer (`cfg.staging_capacity`)
         retries with doubling backoff on overflow, then raises
-        (`ingest_strict`) or sheds the oldest staged samples; `force=True`
-        bypasses the bound.
+        (`ingest_strict`) or sheds the oldest staged samples.
         """
         rec = self.register(twin_id)
         y = np.atleast_2d(np.asarray(y, np.float32))
@@ -385,18 +369,18 @@ class TwinServer:
         if C > self.cfg.capacity:
             raise ValueError("chunk larger than ring capacity")
         try:
-            self._staging.append(rec.ring_slot, y, u, force=force)
+            self._staging.append(rec.ring_slot, y, u)
         except StagingOverflow:
             self._ingest_backpressure(rec.ring_slot, y, u)
 
-    def ingest_many(self, batch, *, force: bool = False) -> int:
+    def ingest_many(self, batch) -> int:
         """Batched `ingest`: `batch` iterates (twin_id, y) or (twin_id, y,
         u) chunks.  Returns the number of SAMPLES staged."""
         staged = 0
         for chunk in batch:
             tid, y = chunk[0], chunk[1]
             u = chunk[2] if len(chunk) > 2 else None
-            self.ingest(tid, y, u, force=force)
+            self.ingest(tid, y, u)
             staged += np.atleast_2d(np.asarray(y)).shape[0]
         return staged
 
@@ -688,7 +672,7 @@ class TwinServer:
         deg = self._degradation
         shed_guard, defer_refit = deg.shed_guard, deg.defer_refit
         skip_promote = deg.skip_promote
-        with span("tick", tick=self.tick_count + 1, **self._labels):
+        with span("tick", tick=self.tick_count + 1):
             t0 = time.perf_counter()
             self.tick_count += 1
             with span("flush"):

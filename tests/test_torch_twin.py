@@ -24,21 +24,27 @@ from repro.twin.monitor import DivergenceGuard as JaxGuard
 from repro.twin.monitor import GuardConfig as JaxGuardConfig
 from repro.twin.packed import PackedFleet as JaxPacked
 from repro.twin.packed import fleet_scores as jax_fleet_scores
+from repro.twin.recovery import DegradationConfig as JaxDegradationConfig
+from repro.twin.scenario import ScenarioRefused as JaxRefused
 from repro.twin.scheduler import PackedRefitScheduler as JaxPlanner
 from repro.twin.scheduler import SchedulerConfig as JaxSchedCfg
 from repro.twin.scheduler import TwinRecord as JaxRecord
 from repro.twin.server import TwinServer as JaxServer
 from repro.twin.server import TwinServerConfig as JaxServerConfig
 from repro.twin.stream import RingConfig as JaxRingConfig
+from repro.twin.stream import StagingOverflow as JaxStagingOverflow
 from repro.twin.stream import TelemetryRing as JaxRing
 from repro_torch.convert import fleet_state_from_jax, merinda_params_from_jax
 from repro_torch.core.library import make_library
 from repro_torch.core.merinda import MerindaConfig
 from repro_torch.twin.monitor import DivergenceGuard, GuardConfig
 from repro_torch.twin.packed import PackedFleet, fleet_scores
+from repro_torch.twin.recovery import DegradationConfig
+from repro_torch.twin.scenario import ScenarioRefused
 from repro_torch.twin.scheduler import PackedRefitScheduler, SchedulerConfig
 from repro_torch.twin.server import TwinServer, TwinServerConfig
-from repro_torch.twin.stream import RingConfig, TelemetryRing
+from repro_torch.twin.stream import (RingConfig, StagingOverflow,
+                                     TelemetryRing)
 
 
 def _np(tree):
@@ -202,22 +208,72 @@ class _JaxDraws:
             _np(self.jfleet.model.init(self._split())))
 
 
-def test_server_64twin_parity_with_jax():
+# warm: every twin starts deployed (half with a near-zero theta that tracks
+# the slow F-8 telemetry, half with a diverging one), so the guard scores from
+# the first ticks.  degrade: a deadline no tick can meet climbs the shed ladder
+# one level every `hold_ticks` (2) ticks: shed guard, defer refit, skip
+# promote; scenario K shrinks at level 2 and queries are refused at 3.
+_CASES = {
+    "full": dict(ticks=10),
+    "guard_budget": dict(ticks=7, warm=True, guard_budget=16),
+    "degraded_scan": dict(ticks=7, warm=True, degrade=True),
+    "degraded_budget": dict(ticks=7, warm=True, degrade=True,
+                            guard_budget=16),
+}
+
+
+def _scenario_pair(jsrv, tsrv, tid, what_if):
+    """Both servers' answer to one what-if query: the effective K, or None
+    when both refused it."""
+    try:
+        sj = jsrv.scenario(tid, what_if.shape[1], what_if)
+    except JaxRefused:
+        with pytest.raises(ScenarioRefused):
+            tsrv.scenario(tid, what_if.shape[1], what_if)
+        return None
+    st = tsrv.scenario(tid, what_if.shape[1], what_if)
+    assert (st.k, st.requested_k, st.degraded_level) == \
+        (sj.k, sj.requested_k, sj.degraded_level)
+    for field in ("ys", "lo", "hi", "confidence"):
+        np.testing.assert_allclose(getattr(st, field), getattr(sj, field),
+                                   rtol=1e-3, atol=1e-4, err_msg=field)
+    return st.k
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_server_64twin_parity_with_jax(case):
+    opts = _CASES[case]
     system = JaxF8()
     n, m, dt = system.spec.n, system.spec.m, system.spec.dt
-    n_twins, chunk, ticks = 64, 8, 10
+    n_twins, chunk, ticks = 64, 8, opts["ticks"]
     trace = simulate_batch(system, jax.random.PRNGKey(3), batch=n_twins,
                            horizon=chunk * ticks + 1, noise_std=0.002)
     ys, us = np.asarray(trace.ys_noisy), np.asarray(trace.us)
     model = dict(n=n, m=m, order=2, dt=dt, hidden=16, head_hidden=16,
                  n_active=12)
+    extra = dict(guard_budget=opts.get("guard_budget"))
+    jextra, textra = dict(extra), dict(extra)
+    if opts.get("degrade"):
+        jextra.update(deadline_s=1e-9,
+                      degradation=JaxDegradationConfig(enabled=True))
+        textra.update(deadline_s=1e-9,
+                      degradation=DegradationConfig(enabled=True))
     jsrv = JaxServer(JaxServerConfig(merinda=JaxMerindaConfig(**model),
                                      guard=JaxGuardConfig(window=16),
-                                     **_SERVER))
+                                     **_SERVER, **jextra))
     tsrv = TwinServer(TwinServerConfig(merinda=MerindaConfig(**model),
                                        guard=GuardConfig(window=16),
-                                       **_SERVER),
+                                       **_SERVER, **textra),
                       device="cpu", init_source=_JaxDraws(jsrv.fleet, 7))
+    rng = np.random.default_rng(4)
+    what_if = (0.02 * rng.normal(size=(4, 12, m))).astype(np.float32)
+    if opts.get("warm"):
+        L = jsrv.fleet.model.lib.size
+        thetas = (0.01 * rng.normal(size=(n_twins, n, L))).astype(np.float32)
+        thetas[1::2] *= 100.0
+        jsrv.deploy_many(range(n_twins), jnp.asarray(thetas))
+        tsrv.deploy_many(range(n_twins), thetas)
+    ks, n_events = [], 0
     for t in range(ticks):
         lo = t * chunk
         for srv in (jsrv, tsrv):
@@ -226,13 +282,31 @@ def test_server_64twin_parity_with_jax():
         rj, rt = jsrv.tick(), tsrv.tick()
         assert (rt.n_active, rt.admitted, rt.evicted, rt.released) == \
             (rj.n_active, rj.admitted, rj.evicted, rj.released), t
+        assert (rt.n_guarded, rt.degraded_level) == \
+            (rj.n_guarded, rj.degraded_level), t
+        assert [(e.from_level, e.to_level) for e in rt.degradation_events] \
+            == [(e.from_level, e.to_level) for e in rj.degradation_events]
         assert [(e.twin_id, e.kind) for e in rt.events] == \
             [(e.twin_id, e.kind) for e in rj.events]
+        n_events += len(rt.events)
         if rj.loss is None:
             assert rt.loss is None
         else:
             np.testing.assert_allclose(rt.loss, rj.loss, rtol=1e-3,
                                        atol=1e-4, err_msg=f"tick {t}")
+        if opts.get("warm"):
+            ks.append(_scenario_pair(jsrv, tsrv, 0, what_if))
+    if opts.get("warm"):
+        assert n_events > 0
+    if opts.get("degrade"):
+        # each rung was reached: full K, K shrunk 4 -> 1, refused
+        assert ks[:5] == [4, 4, 1, 1, None] and set(ks[5:]) == {None}
+        for action in ("guard", "refit", "promote"):
+            assert tsrv._m_shed[action].value == jsrv._m_shed[action].value > 0
+        assert (tsrv._m_scn_shrunk.value, tsrv._m_scn_refused.value) == \
+            (jsrv._m_scn_shrunk.value, jsrv._m_scn_refused.value)
+    elif opts.get("warm"):
+        assert set(ks) == {4}
     deployed = sorted(t for t, r in jsrv.twins.items() if r.deployed)
     assert deployed and deployed == sorted(
         t for t, r in tsrv.twins.items() if r.deployed)
@@ -250,15 +324,58 @@ def test_server_64twin_parity_with_jax():
     np.testing.assert_allclose(tsrv.predict(tid, 12).numpy(),
                                np.asarray(jsrv.predict(tid, 12)),
                                rtol=1e-3, atol=1e-4)
-    what_if = (0.02 * np.random.default_rng(4).normal(size=(3, 12, m))
-               ).astype(np.float32)
-    sj, st = jsrv.scenario(tid, 12, what_if), tsrv.scenario(tid, 12, what_if)
-    assert (st.k, st.requested_k) == (sj.k, sj.requested_k) == (3, 3)
-    for field in ("ys", "lo", "hi", "confidence"):
-        np.testing.assert_allclose(getattr(st, field), getattr(sj, field),
-                                   rtol=1e-3, atol=1e-4, err_msg=field)
+    k = _scenario_pair(jsrv, tsrv, tid, what_if[:3])
+    assert k == (None if opts.get("degrade") else 3)
     assert tsrv.latency_summary()["ticks"] == ticks
     assert set(tsrv.stage_summary()) == set(jsrv.stage_summary())
+
+
+# --------------------------------------------------------------------------- #
+# staging backpressure: bounded buffer, retries, strict raise or drop-oldest
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("strict", [False, True])
+def test_staging_overflow_matches_jax(strict):
+    model = dict(n=2, m=1, hidden=8, head_hidden=8)
+    server = dict(max_twins=4, capacity=64, window=8, stride=4,
+                  windows_per_twin=2, staging_capacity=20,
+                  ingest_strict=strict, ingest_retries=1,
+                  ingest_backoff_s=0.0)
+    jsrv = JaxServer(JaxServerConfig(merinda=JaxMerindaConfig(**model),
+                                     guard=JaxGuardConfig(window=8),
+                                     **server))
+    tsrv = TwinServer(TwinServerConfig(merinda=MerindaConfig(**model),
+                                       guard=GuardConfig(window=8),
+                                       **server), device="cpu")
+    rng = np.random.default_rng(9)
+    raised = []
+    for rnd in range(3):
+        for tid in range(4):
+            c = int(rng.integers(3, 10))
+            y = rng.normal(size=(c, 2)).astype(np.float32)
+            u = rng.normal(size=(c, 1)).astype(np.float32)
+            outcome = []
+            for srv, overflow in ((jsrv, JaxStagingOverflow),
+                                  (tsrv, StagingOverflow)):
+                try:
+                    srv.ingest(tid, y, u)
+                    outcome.append(False)
+                except overflow:
+                    outcome.append(True)
+            assert outcome[0] == outcome[1], (rnd, tid)
+            raised.append(outcome[0])
+            assert tsrv._staging.pending_samples() == \
+                jsrv._staging.pending_samples() <= 20
+        jsrv.tick(), tsrv.tick()
+    assert any(raised) == strict
+    for a, b in ((tsrv._m_ingest_retries, jsrv._m_ingest_retries),
+                 (tsrv._m_ingest_dropped, jsrv._m_ingest_dropped)):
+        assert a.value == b.value
+    assert (tsrv._m_ingest_dropped.value > 0) != strict
+    assert [r.samples for r in tsrv.twins.values()] == \
+        [r.samples for r in jsrv.twins.values()]
+    for key in ("y", "u", "count"):
+        np.testing.assert_array_equal(tsrv._rstate[key].numpy(),
+                                      np.asarray(jsrv._rstate[key]))
 
 
 def test_server_deferred_features_raise():
