@@ -8,17 +8,26 @@ each of which raises on failure (the script then exits nonzero):
   1. build   the hand-written CUDA kernels from csrc/ (nvcc, one process per
              source, all started together);
   2. check   each kernel against its plain PyTorch version at the serving
-             path's shapes (plus a ragged batch, RK4 with m == 0, GRU with
-             shared and per-slot weights), forward and gradients;
+             paths' shapes (plus a ragged batch, RK4 with m == 0, GRU with
+             shared and per-slot weights, forward and gradients; the linear
+             scan in both modes, bf16 and f32, with and without the bonus,
+             ragged, short, carried and wide);
   3. serve   64 F-8 twins at the repo's own serving width
              (examples/online_twinning.py), warm-started with the true
              theta, 12 airframes damaged mid-stream, 40 ticks of 8 samples
-             per twin, then predict and scenario requests; the kernels'
-             launch counts are set to 0 before each of the three paths
-             (tick, predict, scenario) and read after it;
+             per twin, then predict and scenario requests;
   4. parity  the first 10 ticks again on the CPU (plain versions), per-tick
              losses and admissions held to the card's;
-  5. time    each kernel and its plain version at the serving shape.
+  5. LM      rwkv6-3b at its published width (32 layers, d_model 2560, bf16,
+             random weights from a seed) behind a 4-slot ServeEngine: 8
+             greedy requests, prompts of 256-2048 tokens, 32 new tokens each;
+             then one more prefill and 4 decode steps under torch.profiler;
+  6. LM parity  the same architecture at 2 layers in f32, card against CPU:
+             prefill and 16 decode steps' logits, greedy tokens;
+  7. time    each kernel and its plain version at its serving shape.
+
+Kernel launch counts are set to 0 just before each serving path (tick,
+predict, scenario, LM prefill, LM decode) and read just after it.
 
 The last three lines of output are the kernel JSON line, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.  Without a CUDA
@@ -47,9 +56,20 @@ FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 (no tensor core)
 GRU_TOL = dict(rtol=0.0, atol=1e-5)        # fp32, sums in another order
 RK4_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)      # backward replays the plain path
-# the kernels each serving path must launch
+# linear scan against its plain chunked version: both sides upcast the same
+# bf16 / f32 values and sum in f32 in another order -- the JAX package's f32
+# tolerance between its chunked forms and the sequential oracle
+SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
+# card against CPU, f32 LM logits: 2560- and 8960-long f32 dot products and
+# the recurrence summed in another order, through 2 layers
+LM_TOL = dict(rtol=1e-3, atol=1e-3)
+LM_SLOTS, LM_REQUESTS, LM_NEW, LM_PROMPTS = 4, 8, 32, (256, 2048)
+LM_PARITY_LAYERS, LM_PARITY_PROMPT, LM_PARITY_STEPS = 2, 300, 16
+LM_PROFILE_STEPS = 4  # decode steps traced by torch.profiler after serving
+# the kernels each serving path must launch (the LM decode path none)
 PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
-                "scenario": ("rk4_poly",)}
+                "scenario": ("rk4_poly",), "lm_prefill": ("linear_scan",),
+                "lm_decode": ()}
 
 
 def _server_config():
@@ -212,6 +232,67 @@ def check_kernels(dev):
         _close(f"rk4 {label} grads", grads, ref_grads, GRAD_TOL)
         worst["rk4_poly"] = max(worst["rk4_poly"], err)
         print(f"  rk4_poly   {label:24s} max|err| {err:.3e}")
+    worst["linear_scan"] = check_scan(dev)
+    return worst
+
+
+def _scan_inputs(gen, dev, B, H, T, dtype, strong=False):
+    """q, k, v (dtype), w (f32 log decay), u (f32) with K = V = 64: the JAX
+    kernel tests' distributions; `strong` widens the decay to exp(-7.4) per
+    step."""
+    K = V = 64
+    rand = lambda *s: torch.randn(s, generator=gen)
+    lo, hi = (-1.0, 2.0) if strong else (-7.0, -1.5)
+    w = -torch.exp(torch.rand((B, H, T, K), generator=gen) * (hi - lo) + lo)
+    return ((0.5 * rand(B, H, T, K)).to(dev, dtype),
+            (0.5 * rand(B, H, T, K)).to(dev, dtype),
+            (0.5 * rand(B, H, T, V)).to(dev, dtype),
+            w.to(dev), (0.3 * rand(H, K)).to(dev))
+
+
+def check_scan(dev) -> float:
+    """The linear-scan kernel against its plain chunked version: the RWKV-6
+    prefill shape (B=1, H=40, K=V=64, chunk 64) with a ragged T, T < 64
+    (C = T), a state carried across two halves, strong decays, and B*H >
+    132; both modes, with and without the bonus u, bf16 and f32."""
+    from repro_torch.kernels.linear_scan.ops import linear_scan
+    from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
+    gen = torch.Generator().manual_seed(3)
+    cases = [("prefill B=1 H=40 T=1000", 1, 40, 1000, False),
+             ("short B=1 H=40 T=37", 1, 40, 37, False),
+             ("strong decay T=300", 1, 40, 300, True),
+             ("wide B=4 H=40 T=200", 4, 40, 200, False)]
+    variants = [("ssd", False), ("rwkv6", True), ("rwkv6", False)]
+    worst = 0.0
+    with torch.no_grad():
+        for label, B, H, T, strong in cases:
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, w, u = _scan_inputs(gen, dev, B, H, T, dtype,
+                                             strong=strong)
+                for mode, bonus in variants:
+                    uu = u if bonus else None
+                    got = linear_scan(q, k, v, w, uu, mode=mode)
+                    want = linear_scan_chunked(q, k, v, w, uu, mode=mode)
+                    torch.cuda.synchronize()
+                    name = (f"{label} {mode}{'+u' if bonus else ''} "
+                            f"{str(dtype)[6:]}")
+                    err = _close(f"linear_scan {name}", got, want, SCAN_TOL)
+                    worst = max(worst, err)
+                    print(f"  linear_scan {name:40s} max|err| {err:.3e}")
+        # a state carried across two halves equals one whole scan
+        q, k, v, w, u = _scan_inputs(gen, dev, 1, 40, 1000, torch.bfloat16)
+        for mode in ("ssd", "rwkv6"):
+            whole = linear_scan(q, k, v, w, u, mode=mode)
+            o1, s1 = linear_scan(*(x[:, :, :450] for x in (q, k, v, w)), u,
+                                 mode=mode)
+            o2, s2 = linear_scan(*(x[:, :, 450:] for x in (q, k, v, w)), u,
+                                 mode=mode, initial_state=s1)
+            torch.cuda.synchronize()
+            err = _close(f"linear_scan carry {mode}",
+                         (torch.cat([o1, o2], dim=2), s2), whole, SCAN_TOL)
+            worst = max(worst, err)
+            print(f"  linear_scan {'carry 450 + 550 ' + mode:40s} "
+                  f"max|err| {err:.3e}")
     return worst
 
 
@@ -259,12 +340,33 @@ def _bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _scan_work(B, H, T, K, V, C, rwkv6: bool):
+    """Operations of the chunked formulation for one call, counting the
+    causal pairs this T has: per (t, s) pair and k, q*k*decay (3) plus the
+    decay's subtraction and exponential (2); P v; q_read S; the state
+    update; 2 per multiply-add."""
+    ops = 0.0
+    for t0 in range(0, T, C):
+        c = min(C, T - t0)
+        strict = c * (c - 1) // 2
+        diag = c                                    # s == t: bonus or 1
+        pair_ops = (strict * K * 5 + diag * K * 3) if rwkv6 else \
+            ((strict + diag) * K * 5)
+        ops += (pair_ops + (strict + diag) * V * 2    # P v
+                + c * K * (2 + 2 * V)                 # q*2^cw_read, @ S
+                + c * K * (3 + 2 * V)                 # kd, kd^T v
+                + K * (1 + 2 * V))                    # 2^cw_end S
+    return B * H * ops
+
+
 def kernel_lines(dev, paths, worst):
     """One entry per kernel at its serving shape: the GRU at the refit
     encoder (F=8 slots x B=8 windows, T=24, D=4, H=32), RK4 at the refit
-    decoder (B=64, T=24, n=3, L=35, O=3, m=1).  Neither has a single PyTorch
-    call computing the same function (torch's GRU applies the reset gate
-    after the hidden product), so library_ms is null."""
+    decoder (B=64, T=24, n=3, L=35, O=3, m=1), the linear scan at the
+    RWKV-6 prefill (B=1, H=40, T=2048, K=V=64, C=64, bf16 q/k/v).  None has
+    a single PyTorch call computing the same function (torch's GRU applies
+    the reset gate after the hidden product; no call runs an ODE or a
+    decayed linear recurrence), so library_ms is null."""
     from repro_torch.kernels.gru.ops import gru_scan
     from repro_torch.kernels.gru.ref import gru_scan_ref
     from repro_torch.kernels.rk4.ops import rk4_poly_solve
@@ -314,26 +416,56 @@ def kernel_lines(dev, paths, worst):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             eager_ms=_eager_ms(kern), plain_eager_ms=_eager_ms(plain),
             shape=f"B={B} T={T} n={n} L={L} O={O} m={m}"))
+
+        from repro_torch.kernels.linear_scan.ops import linear_scan
+        from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
+        B, H, T, K, V, C = 1, 40, 2048, 64, 64, 64
+        q, k, v, w, u = _scan_inputs(gen, dev, B, H, T, torch.bfloat16)
+        o, sf = linear_scan(q, k, v, w, u, mode="rwkv6", chunk=C)
+        nbytes = sum(t.nbytes for t in (q, k, v, w, u, o, sf))
+        bound_ms, bound_by = _bound(_scan_work(B, H, T, K, V, C, True),
+                                    nbytes)
+        kern = lambda: linear_scan(q, k, v, w, u, mode="rwkv6", chunk=C)
+        plain = lambda: linear_scan_chunked(q, k, v, w, u, mode="rwkv6",
+                                            chunk=C)
+        lines.append(dict(
+            name="linear_scan", route="cuda",
+            source="src/repro_torch/csrc/linear_scan.cu",
+            replaces="src/repro/kernels/linear_scan/linear_scan.py:28",
+            launches=sum(c["linear_scan"] for c in paths.values()),
+            launches_by_path={p: c["linear_scan"] for p, c in paths.items()},
+            max_abs_err=worst["linear_scan"],
+            ms=_device_ms(kern), plain_ms=_device_ms(plain, reps=5),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            eager_ms=_eager_ms(kern), plain_eager_ms=_eager_ms(plain,
+                                                               reps=20),
+            shape=f"B={B} H={H} T={T} K={K} V={V} C={C} rwkv6 bf16"))
     for line in lines:
         line["kernel_ms"] = line["ms"]
     return lines
 
 
-def counted(paths: dict, path: str, fn):
+def counted(paths: dict, path: str, fn, quiet: bool = False):
     """Drive one serving path with every kernel's launch count set to 0 just
-    before it, record the counts just after, and fail if a kernel the path
-    runs was never launched."""
+    before it, add the counts just after to the path's total (a path driven
+    call by call, like the LM engine's, sums its calls), and fail if a
+    kernel the path runs was never launched."""
     from repro_torch.kernels.gru.ops import gru_scan
+    from repro_torch.kernels.linear_scan.ops import linear_scan
     from repro_torch.kernels.rk4.ops import rk4_poly_solve
-    kernels = {"gru_scan": gru_scan, "rk4_poly": rk4_poly_solve}
+    kernels = {"gru_scan": gru_scan, "rk4_poly": rk4_poly_solve,
+               "linear_scan": linear_scan}
     for k in kernels.values():
         k.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    paths[path] = {name: k.launches for name, k in kernels.items()}
-    print(f"kernel launches on the {path} path: {paths[path]}")
+    total = paths.setdefault(path, dict.fromkeys(kernels, 0))
+    for name, k in kernels.items():
+        total[name] += k.launches
+    if not quiet:
+        print(f"kernel launches on the {path} path: {total}")
     for name in PATH_KERNELS[path]:
-        if paths[path][name] == 0:
+        if total[name] == 0:
             raise RuntimeError(f"{name} was never launched on the {path} "
                                "path")
     return out
@@ -395,32 +527,203 @@ def check_parity(reports, cpu_reports):
               f"{len(rg.admitted)} loss card {rg.loss} cpu {rc.loss}")
 
 
-def profile_ticks(srv, ys, us):
-    """Trace PROFILE_TICKS more ticks with torch.profiler: the device's busy
-    share of their wall time and the kernels that fill it (one stream, so
-    summed kernel time is busy time)."""
+# --------------------------------------------------------------------------- #
+# LM serving (rwkv6-3b)
+# --------------------------------------------------------------------------- #
+def _lm_api(cfg, finite: list):
+    """The model API with every prefill's and decode's logits recorded as
+    finite or not (a device flag, read once at the end)."""
+    from repro_torch.models.zoo import build
+    api = build(cfg)
+
+    def watch(fn):
+        def call(*args):
+            cache, logits = fn(*args)
+            finite.append(torch.isfinite(logits).all())
+            return cache, logits
+        return call
+    return dataclasses.replace(api, prefill=watch(api.prefill),
+                               decode=watch(api.decode))
+
+
+def _n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_n_params(v) for v in tree)
+    return tree.numel()
+
+
+def serve_lm(paths: dict):
+    """rwkv6-3b at full width behind a 4-slot engine: 8 greedy requests,
+    admitted as slots free up; every admit counted on the lm_prefill path
+    and every decode step on the lm_decode path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_arch("rwkv6-3b").config
+    finite = []
+    api = _lm_api(cfg, finite)
+    t0 = time.perf_counter()
+    params = api.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: "
+          f"{_n_params(params) / 1e9:.3f}B parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"drawn in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(7)
+    lens = rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1, size=LM_REQUESTS)
+    if np.all(lens % 64 == 0):
+        lens[0] += 1
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lens]
+    engine = ServeEngine(api, slots=LM_SLOTS,
+                         max_len=LM_PROMPTS[1] + LM_NEW, seed=0)
+    engine.load(params)
+    # warm-up outside the counted run: cuBLAS handles, allocator pools
+    engine.generate([Request(rid=-1, prompt=prompts[0][:100],
+                             max_new_tokens=2)])
+    torch.cuda.synchronize()
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW)
+            for i, p in enumerate(prompts)]
+    pending, done = list(reqs), []
+    prefill_s = decode_s = 0.0
+    admitted = steps = 0
+    while pending or engine.active:
+        while pending and engine.free_slots():
+            req = pending.pop(0)
+            t0 = time.perf_counter()
+            if not counted(paths, "lm_prefill", lambda: engine.admit(req),
+                           quiet=True):
+                raise RuntimeError(f"request {req.rid} was not admitted")
+            prefill_s += time.perf_counter() - t0
+            admitted += 1
+        t0 = time.perf_counter()
+        done += counted(paths, "lm_decode", engine.step, quiet=True)
+        decode_s += time.perf_counter() - t0
+        steps += 1
+    for path in ("lm_prefill", "lm_decode"):
+        print(f"kernel launches on the {path} path: {paths[path]}")
+    want = cfg.n_layers * admitted
+    if paths["lm_prefill"]["linear_scan"] != want:
+        raise RuntimeError(f"lm_prefill launched linear_scan "
+                           f"{paths['lm_prefill']['linear_scan']} times, "
+                           f"expected {cfg.n_layers} x {admitted} = {want}")
+    if any(paths["lm_decode"].values()):
+        raise RuntimeError(f"lm_decode launched kernels: "
+                           f"{paths['lm_decode']}")
+    if sorted(r.rid for r in done) != list(range(LM_REQUESTS)):
+        raise RuntimeError(f"finished {sorted(r.rid for r in done)}")
+    for r in done:
+        if len(r.generated) != LM_NEW or not all(
+                0 <= t < cfg.vocab for t in r.generated):
+            raise RuntimeError(f"request {r.rid}: {r.generated}")
+    if not bool(torch.stack(finite).all()):
+        raise RuntimeError("non-finite logits on the LM path")
+    tokens = int(lens.sum())
+    print(f"served {len(done)} requests (prompts {sorted(lens.tolist())}), "
+          f"{LM_NEW} tokens each; {len(finite)} logit rows finite")
+    print(f"prefill {tokens} tokens in {prefill_s * 1e3:.2f} ms: "
+          f"{tokens / prefill_s:.1f} tokens/s; decode {steps} steps of "
+          f"{LM_SLOTS} slots in {decode_s * 1e3:.2f} ms: "
+          f"{decode_s * 1e3 / steps:.3f} ms per step")
+    print(f"request 0 tokens: {reqs[0].generated}")
+    # after the counted run: one more prefill, then decode steps, profiled
+    extra = Request(rid=LM_REQUESTS, prompt=prompts[-1][:1024],
+                    max_new_tokens=LM_PROFILE_STEPS + 1)
+    profiled(f"LM prefill of {len(extra.prompt)} tokens",
+             lambda: engine.admit(extra))
+    profiled(f"{LM_PROFILE_STEPS} LM decode steps (1 active slot)",
+             lambda: [engine.step() for _ in range(LM_PROFILE_STEPS)])
+    del engine, params
+    torch.cuda.empty_cache()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def lm_parity(dev):
+    """rwkv6-3b at full width, 2 layers, f32: the same weights (drawn on
+    the card) on the card and on the CPU give prefill logits within
+    LM_TOL, and equal greedy tokens with logits within LM_TOL for
+    LM_PARITY_STEPS decode steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    cfg = get_arch("rwkv6-3b").config.with_(n_layers=LM_PARITY_LAYERS,
+                                            dtype=torch.float32)
+    params = tfm.init_params(cfg, seed=1, device=dev)
+    cpu_params = _to(params, "cpu")
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab,
+                                               size=(1, LM_PARITY_PROMPT))
+    worst, toks = 0.0, []
+    with torch.no_grad():
+        caches, logits = [], []
+        for d, p in ((dev, params), ("cpu", cpu_params)):
+            c, lg = tfm.prefill(cfg, p, torch.as_tensor(prompt, device=d),
+                                LM_PARITY_PROMPT + LM_PARITY_STEPS)
+            caches.append(c)
+            logits.append(lg)
+        for step in range(LM_PARITY_STEPS + 1):
+            card, host = logits[0].cpu(), logits[1]
+            torch.testing.assert_close(card, host, **LM_TOL, msg=lambda m:
+                                       f"LM logits, step {step}: {m}")
+            worst = max(worst, float((card - host).abs().max()))
+            nxt = [int(torch.argmax(lg[0])) for lg in (card, host)]
+            if nxt[0] != nxt[1]:
+                raise RuntimeError(f"step {step}: card token {nxt[0]}, CPU "
+                                   f"{nxt[1]}")
+            toks.append(nxt[0])
+            if step == LM_PARITY_STEPS:
+                break
+            for i, (d, p) in enumerate(((dev, params), ("cpu", cpu_params))):
+                caches[i], logits[i] = tfm.decode_step(
+                    cfg, p, caches[i], torch.tensor([nxt[0]], device=d))
+    print(f"prefill of {LM_PARITY_PROMPT} tokens + {LM_PARITY_STEPS} decode "
+          f"steps: greedy tokens equal ({toks}), logits max|card - CPU| "
+          f"{worst:.3e}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
+def profiled(what: str, fn, top: int = 8):
+    """Trace `fn` with torch.profiler and print the device's busy share of
+    its wall time and the kernels that fill it (one stream, so summed
+    kernel time is busy time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(TICKS, TICKS + PROFILE_TICKS):
-            _stream(srv, ys, us, t)
+        fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
-        print("device busy share: not measured (the profiler recorded no "
-              "device events)")
+        print(f"{what}: device busy share not measured (the profiler "
+              "recorded no device events)")
         return
-    print(f"profiled {PROFILE_TICKS} ticks: wall {wall_us / 1e3:.2f} ms, "
+    print(f"profiled {what}: wall {wall_us / 1e3:.2f} ms, "
           f"device busy {busy_us / 1e3:.2f} ms "
           f"({100 * busy_us / wall_us:.1f}%), "
           f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+
+
+def profile_ticks(srv, ys, us):
+    """PROFILE_TICKS more ticks under the profiler."""
+    def ticks():
+        for t in range(TICKS, TICKS + PROFILE_TICKS):
+            _stream(srv, ys, us, t)
+    profiled(f"{PROFILE_TICKS} ticks", ticks)
 
 
 # --------------------------------------------------------------------------- #
@@ -470,7 +773,13 @@ def main() -> int:
     _, cpu_reports = serve("cpu", ys, us, PARITY_TICKS)
     check_parity(reports, cpu_reports)
 
-    print("== 5. kernel times at the serving shapes")
+    print("== 5. LM serving: rwkv6-3b at full width on the card")
+    serve_lm(paths)
+
+    print(f"== 6. LM card against CPU: {LM_PARITY_LAYERS} layers, f32")
+    lm_parity(dev)
+
+    print("== 7. kernel times at the serving shapes")
     lines = kernel_lines(dev, paths, worst)
     print(json.dumps({"kernels": lines}))
     print(smi)

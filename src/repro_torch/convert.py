@@ -1,7 +1,7 @@
 """Carry weights and optimizer state across from the JAX package.
 
-Both functions take host trees of numpy arrays (the JAX pytrees after
-`np.asarray` on every leaf) and return the port's tensors, so a test can
+Every function takes a host tree of numpy arrays (the JAX pytree after
+`np.asarray` on every leaf) and returns the port's tensors, so a test can
 start the port from the JAX package's own random draws.  Nothing here
 imports JAX: the JAX `AdamState` is a NamedTuple, unpacked positionally as
 (step, mu, nu).
@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.train.optimizer import AdamState
 
-__all__ = ["merinda_params_from_jax", "fleet_state_from_jax"]
+__all__ = ["merinda_params_from_jax", "fleet_state_from_jax",
+           "lm_params_from_jax"]
 
 
 def _tensors(tree, device, dtype=torch.float32):
@@ -40,3 +41,40 @@ def fleet_state_from_jax(state, device="cpu") -> dict:
         "step": _tensors(state["step"], device, torch.int32),
         "steps": _tensors(state["steps"], device, torch.int32),
     }
+
+
+def _cycle(tree, c: int):
+    if isinstance(tree, dict):
+        return {k: _cycle(v, c) for k, v in tree.items()}
+    return np.asarray(tree)[c]
+
+
+def _lm_tensors(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _lm_tensors(v, device, dtype) for k, v in tree.items()}
+    # via f32: torch cannot read numpy's bfloat16 (ml_dtypes) arrays
+    return torch.tensor(np.asarray(tree, dtype=np.float32),
+                        device=device).to(dtype)
+
+
+def lm_params_from_jax(tree, cfg, device="cpu") -> dict:
+    """`transformer.init_params` params of the JAX package -> the port's.
+
+    JAX stacks each pattern position's layers as [n_cycles, ...] leaves
+    under tree["layers"] (a list over pattern positions) plus an unstacked
+    tree["tail"]; the port keeps one dict per layer in depth order.  Leaves
+    become tensors of `cfg.dtype` (a torch dtype) on `device`.
+    """
+    if "shared" in tree:
+        raise NotImplementedError("shared attention blocks are not ported "
+                                  "yet (ROADMAP.md, Queue 1 item 15)")
+    p = len(cfg.pattern)
+    layers = [_cycle(tree["layers"][i], c) for c in range(cfg.cycles)
+              for i in range(p)] + list(tree.get("tail", []))
+    conv = lambda t: _lm_tensors(t, device, cfg.dtype)
+    out = {"embed": conv(tree["embed"]),
+           "layers": [conv(layer) for layer in layers],
+           "final_norm": conv(tree["final_norm"])}
+    if "unembed" in tree:
+        out["unembed"] = conv(tree["unembed"])
+    return out

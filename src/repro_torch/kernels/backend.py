@@ -14,9 +14,10 @@ build directory (``build/repro_torch/<hash>`` at the checkout root, listed in
 library is never loaded.  Nothing here runs at import: the CPU tests import
 every module on a machine with no ``nvcc``.
 
-Each kernel wrapper (kernels/gru/ops.py, kernels/rk4/ops.py) dispatches on
-the device of the tensors it is given: a CPU tensor goes to the plain
-version, a CUDA tensor launches the kernel or raises.  A build or launch
+Each kernel wrapper (kernels/gru/ops.py, kernels/rk4/ops.py,
+kernels/linear_scan/ops.py) dispatches on the device of the tensors it is
+given: a CPU tensor goes to the plain version, a CUDA tensor launches the
+kernel or raises.  A build or launch
 failure is never caught and routed to the plain version.
 """
 from __future__ import annotations
@@ -141,6 +142,10 @@ def _declare(lib) -> None:
     lib.rk4_poly_max_n.restype = i32
     lib.rk4_poly_max_aug.argtypes = []
     lib.rk4_poly_max_aug.restype = i32
+    lib.linear_scan_launch.argtypes = [vp] * 8 + [i32] * 9 + [vp]
+    lib.linear_scan_launch.restype = i32
+    lib.linear_scan_smem_bytes.argtypes = [i32] * 4
+    lib.linear_scan_smem_bytes.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

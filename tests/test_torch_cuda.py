@@ -9,7 +9,11 @@ Shapes are the serving path's (GRU: 8 refit slots x B windows, T=24, D=4,
 H=32; RK4: n=3, order 3, T=24) with a full and a ragged batch.  Tolerances:
 forward GRU 1e-5 absolute and RK4 rtol 1e-4 / atol 1e-5 (fp32 sums in
 another order than the plain version); gradients rtol 1e-4 / atol 1e-5 (the
-backward replays the plain version on the saved inputs).
+backward replays the plain version on the saved inputs).  The linear scan
+(RWKV-6 prefill: H=40, K=V=64, chunk 64; plus a short, a wide and an odd
+shape) is held to its plain chunked version at rtol = atol = 2e-4, the JAX
+package's f32 tolerance: both sides upcast the same bf16 or f32 values and
+sum in f32 in another order.
 """
 import numpy as np
 import pytest
@@ -18,6 +22,8 @@ import torch
 from repro_torch.core.library import make_library
 from repro_torch.kernels.gru.ops import gru_scan
 from repro_torch.kernels.gru.ref import gru_scan_ref
+from repro_torch.kernels.linear_scan.ops import linear_scan
+from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
 from repro_torch.kernels.rk4.ops import rk4_poly_solve
 from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
 
@@ -90,3 +96,78 @@ def test_rk4_kernel_matches_plain_version(cuda, B, m):
     torch.testing.assert_close(outs[0], ref_outs[0], rtol=1e-4, atol=1e-5)
     for g, r in zip(grads, ref_grads):
         torch.testing.assert_close(g, r, **GRAD)
+
+
+def _scan_inputs(dev, B, H, T, K, V, dtype, seed, strong=False):
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=dtype: torch.tensor(a, dtype=torch.float32,
+                                         device=dev).to(dt)
+    lo, hi = (-1.0, 2.0) if strong else (-7.0, -1.5)
+    return (t(0.5 * rng.normal(size=(B, H, T, K))),
+            t(0.5 * rng.normal(size=(B, H, T, K))),
+            t(0.5 * rng.normal(size=(B, H, T, V))),
+            t(-np.exp(rng.uniform(lo, hi, (B, H, T, K))), torch.float32),
+            t(0.3 * rng.normal(size=(H, K)), torch.float32))
+
+
+SCAN_SHAPES = {                      # (B, H, T, K, V, chunk)
+    "prefill": (1, 40, 1000, 64, 64, 64),
+    "short": (1, 40, 37, 64, 64, 64),
+    "wide": (3, 48, 130, 64, 64, 64),
+    "odd": (2, 3, 50, 10, 6, 16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SCAN_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode,bonus", [("ssd", False), ("rwkv6", True),
+                                        ("rwkv6", False)],
+                         ids=["ssd", "rwkv6", "rwkv6-no-u"])
+def test_linear_scan_kernel_matches_plain_version(cuda, shape, dtype, mode,
+                                                  bonus):
+    B, H, T, K, V, chunk = SCAN_SHAPES[shape]
+    q, k, v, w, u = _scan_inputs(cuda, B, H, T, K, V, dtype, T + K)
+    u = u if bonus else None
+    s0 = 0.1 * torch.randn(B, H, K, V, device=cuda)
+    before = linear_scan.launches
+    with torch.no_grad():
+        o, s = linear_scan(q, k, v, w, u, mode=mode, chunk=chunk,
+                           initial_state=s0)
+    torch.cuda.synchronize()
+    assert linear_scan.launches == before + 1
+    ro, rs = linear_scan_chunked(q, k, v, w, u, mode=mode, chunk=chunk,
+                                 initial_state=s0)
+    torch.testing.assert_close(o, ro, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, rs, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ssd", "rwkv6"])
+def test_linear_scan_kernel_carry_and_strong_decay(cuda, mode):
+    """Two halves with the state carried equal the whole, and decays down
+    to exp(-7.4) per step neither overflow nor leave the plain version."""
+    q, k, v, w, u = _scan_inputs(cuda, 1, 40, 300, 64, 64, torch.bfloat16,
+                                 5, strong=True)
+    with torch.no_grad():
+        o, s = linear_scan(q, k, v, w, u, mode=mode)
+        o1, s1 = linear_scan(*(x[:, :, :130] for x in (q, k, v, w)), u,
+                             mode=mode)
+        o2, s2 = linear_scan(*(x[:, :, 130:] for x in (q, k, v, w)), u,
+                             mode=mode, initial_state=s1)
+    ro, rs = linear_scan_chunked(q, k, v, w, u, mode=mode)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(o, ro, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, rs, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(torch.cat([o1, o2], dim=2), o, rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(s2, s, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_linear_scan_kernel_refuses_gradients(cuda):
+    q, k, v, w, u = _scan_inputs(cuda, 1, 2, 16, 8, 8, torch.float32, 0)
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        linear_scan(q, k, v, w, u, mode="rwkv6")

@@ -72,3 +72,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.zoo import build
+    from repro_torch.serve.engine import ServeEngine
+    api = build(get_arch("rwkv6-3b").smoke)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(api)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.cache_init(2, 64)
+    assert ServeEngine(api, device="cpu").device == torch.device("cpu")
