@@ -24,7 +24,10 @@ each of which raises on failure (the script then exits nonzero):
              then one more prefill and 4 decode steps under torch.profiler;
   6. LM parity  the same architecture at 2 layers in f32, card against CPU:
              prefill and 16 decode steps' logits, greedy tokens;
-  7. time    each kernel and its plain version at its serving shape.
+  7. time    each kernel and its plain version at every serving shape (RK4:
+             refit, guard, promote, predict, scenario, a fleet of 2048; the
+             scan: prompts of 256-4096 tokens, 4 prompts of 2048), and the
+             scan's three launches apart.
 
 Kernel launch counts are set to 0 just before each serving path (tick,
 predict, scenario, LM prefill, LM decode) and read just after it.
@@ -52,7 +55,8 @@ HISTORY = 96          # samples each twin has streamed before the first tick
 TWINS, DAMAGED, TICKS, DAMAGE_TICK, WARMUP = 64, 12, 40, 4, 3
 PARITY_TICKS = 10
 PROFILE_TICKS = 3     # extra ticks traced by torch.profiler after serving
-FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12     # H100 SXM: fp32 (no tensor core)
+# H100 SXM peaks: f32 outside the tensor cores, TF32 on them (dense), HBM
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 GRU_TOL = dict(rtol=0.0, atol=1e-5)        # fp32, sums in another order
 RK4_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)      # backward replays the plain path
@@ -67,6 +71,9 @@ LM_SLOTS, LM_REQUESTS, LM_NEW, LM_PROMPTS = 4, 8, 32, (256, 2048)
 LM_PARITY_LAYERS, LM_PARITY_PROMPT, LM_PARITY_STEPS = 2, 300, 16
 LM_PROFILE_STEPS = 4  # decode steps traced by torch.profiler after serving
 # the kernels each serving path must launch (the LM decode path none)
+# the CUDA kernels of csrc/, as the profiler names them
+OWN_KERNELS = ("gru_scan_kernel", "rk4_poly_kernel", "chunk_state_kernel",
+               "state_scan_kernel", "chunk_output_kernel")
 PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
                 "scenario": ("rk4_poly",), "lm_prefill": ("linear_scan",),
                 "lm_decode": ()}
@@ -215,7 +222,8 @@ def check_kernels(dev):
                  ("predict B=1 T=50", (1,), 50, 1),
                  ("scenario [4, 8] T=50", (4, 8), 50, 1),
                  ("ragged B=61 T=24", (61,), 24, 1),
-                 ("m=0 B=61 T=24", (61,), 24, 0)]
+                 ("m=0 B=61 T=24", (61,), 24, 0),
+                 ("fleet B=2048 T=32", (2048,), 32, 1)]
     for label, lead, T, m in rk4_cases:
         lib, args = _rk4_inputs(gen, dev, lead, T, m)
         idx = lib.indices_on(dev)
@@ -334,17 +342,21 @@ def _eager_ms(fn, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
+def _bound(flops: float, nbytes: float, tf32_flops: float = 0.0):
+    """The larger of the operations' time (f32 ones outside the tensor
+    cores, TF32 ones on them) and the bytes' time, in ms."""
+    t_ops = flops / FP32_FLOPS + tf32_flops / TF32_FLOPS
+    t_bytes = nbytes / HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _scan_work(B, H, T, K, V, C, rwkv6: bool):
-    """Operations of the chunked formulation for one call, counting the
-    causal pairs this T has: per (t, s) pair and k, q*k*decay (3) plus the
-    decay's subtraction and exponential (2); P v; q_read S; the state
-    update; 2 per multiply-add."""
+def _scan_work_pairwise(B, H, T, K, V, C, rwkv6: bool):
+    """Operations of the chunked formulation with every decay in the
+    pairwise form (the count of the earlier kernel), for the causal pairs
+    this T has: per (t, s) pair and k, q*k*decay (3) plus the decay's
+    subtraction and exponential (2); P v; q_read S; the state update; 2 per
+    multiply-add."""
     ops = 0.0
     for t0 in range(0, T, C):
         c = min(C, T - t0)
@@ -359,90 +371,186 @@ def _scan_work(B, H, T, K, V, C, rwkv6: bool):
     return B * H * ops
 
 
+def _scan_work(B, H, T, K, V, C, rwkv6: bool, exact_v: bool):
+    """Operations of the subchunk form the kernel runs (csrc/linear_scan.cu,
+    ref.py::linear_scan_subchunked), for the causal pairs this T has, as
+    (f32, TF32).  Pairs inside one SUBCHUNK-row subchunk keep the pairwise
+    count above; a pair of query subchunk I and earlier key subchunk J is
+    one multiply-add per k on pre-scaled rows, plus one product per (row,
+    J, k) for the factor 2^(p_I - c_J).  The scalings: qs and kj
+    (subtraction, exponential, product), 2^(p_I - c_J) (2) and 2^p_I (1)
+    per subchunk, q_read (1).  The four products -- the off-diagonal
+    blocks of P, P v, q_read S, kd^T v -- run on the tensor cores in
+    3xTF32 form: 3 TF32 multiply-adds for each, 2 where the other side is
+    v and v is exact in TF32 (bf16).  The rest is f32 outside them."""
+    from repro_torch.kernels.linear_scan.ref import SUBCHUNK as sub
+    nv = 2 if exact_v else 3
+    f32 = tf32 = 0.0
+    for t0 in range(0, T, C):
+        c = min(C, T - t0)
+        sizes = [min(sub, c - r) for r in range(0, c, sub)]
+        ns = len(sizes)
+        inner = sum(b * (b - 1) // 2 for b in sizes)       # s < t, same sub
+        outer = c * (c - 1) // 2 - inner                    # earlier sub
+        diag = c
+        pair_ops = (inner * K * 5 + diag * K * 3) if rwkv6 else \
+            ((inner + diag) * K * 5)
+        factor_rows = sum(b * i for i, b in enumerate(sizes))   # (t, J<I)
+        f32 += (pair_ops + factor_rows * K
+                + c * K * 3 * 2                              # qs, kj
+                + ns * (ns - 1) // 2 * K * 2 + ns * K         # pivots
+                + c * K                                      # q_read
+                + c * K * 3                                  # kd
+                + K * (1 + 2 * V))                           # 2^cw_end S
+        tf32 += (3 * outer * K * 2                           # P, off-diag
+                 + nv * (inner + outer + diag) * V * 2       # P v
+                 + 3 * c * K * V * 2                         # q_read @ S
+                 + nv * c * K * V * 2)                       # kd^T v
+    return B * H * f32, B * H * tf32
+RK4_SHAPES = {             # the serving paths' calls: (lead, T)
+    "refit B=64 T=24": ((64,), 24),
+    "guard B=64 T=32": ((64,), 32),
+    "promote B=8 T=32": ((8,), 32),
+    "predict B=1 T=50": ((1,), 50),
+    "scenario [4, 8] T=50": ((4, 8), 50),
+    "fleet B=2048 T=32": ((2048,), 32),
+}
+SCAN_SHAPES = {            # (B, H, T): RWKV-6 prefills of one or 4 prompts
+    "T=256": (1, 40, 256), "T=659": (1, 40, 659), "T=1024": (1, 40, 1024),
+    "T=2048": (1, 40, 2048), "T=4096": (1, 40, 4096),
+    "B=4 T=2048": (4, 40, 2048),
+}
+
+
+def _timed(fn, plain, flops, nbytes, plain_reps=20, tf32_flops=0.0,
+           eager=False):
+    """Device ms of the kernel and of its plain version, and the bound;
+    with `eager`, also each one's time a call launched from Python."""
+    bound_ms, bound_by = _bound(flops, nbytes, tf32_flops)
+    out = dict(ms=_device_ms(fn), plain_ms=_device_ms(plain, reps=plain_reps),
+               bound_ms=bound_ms, bound_by=bound_by)
+    if eager:
+        out.update(eager_ms=_eager_ms(fn),
+                   plain_eager_ms=_eager_ms(plain, reps=10 * plain_reps))
+    return out
+
+
+def _by_shape(line, timings, main):
+    """The main shape's numbers as the line's own, every shape's by name."""
+    line.update(timings[main])
+    for key in ("ms", "plain_ms", "bound_ms"):
+        line[f"{key}_by_shape"] = {s: t[key] for s, t in timings.items()}
+    line["shape"] = main
+    return line
+
+
 def kernel_lines(dev, paths, worst):
-    """One entry per kernel at its serving shape: the GRU at the refit
-    encoder (F=8 slots x B=8 windows, T=24, D=4, H=32), RK4 at the refit
-    decoder (B=64, T=24, n=3, L=35, O=3, m=1), the linear scan at the
-    RWKV-6 prefill (B=1, H=40, T=2048, K=V=64, C=64, bf16 q/k/v).  None has
-    a single PyTorch call computing the same function (torch's GRU applies
-    the reset gate after the hidden product; no call runs an ODE or a
-    decayed linear recurrence), so library_ms is null."""
+    """One entry per kernel.  `ms`, `plain_ms` and `bound_ms` are at the main
+    serving shape -- the GRU at the refit encoder (F=8 slots x B=8 windows,
+    T=24, D=4, H=32), RK4 at the refit decoder (B=64, T=24, n=3, L=35, O=3,
+    m=1), the linear scan at the RWKV-6 prefill (B=1, H=40, T=2048,
+    K=V=64, C=64, bf16 q/k/v) -- and `*_by_shape` hold every serving shape
+    timed.  None has a single PyTorch call computing the same function
+    (torch's GRU applies the reset gate after the hidden product; no call
+    runs an ODE or a decayed linear recurrence), so library_ms is null."""
     from repro_torch.kernels.gru.ops import gru_scan
     from repro_torch.kernels.gru.ref import gru_scan_ref
+    from repro_torch.kernels.linear_scan.ops import linear_scan
+    from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
     from repro_torch.kernels.rk4.ops import rk4_poly_solve
     from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
     gen = torch.Generator().manual_seed(2)
+    common = lambda name: dict(
+        name=name, route="cuda", library_ms=None,
+        launches=sum(c[name] for c in paths.values()),
+        launches_by_path={p: c[name] for p, c in paths.items()},
+        max_abs_err=worst[name])
     lines = []
     with torch.no_grad():
-        xs, h0, wx, wh, b = args = _gru_inputs(gen, dev, (8, 8), 8)
-        (F, B, T, D), H = xs.shape, h0.shape[-1]
+        args = _gru_inputs(gen, dev, (8, 8), 8)
+        (F, B, T, D), H = args[0].shape, args[1].shape[-1]
         outs = gru_scan(*args)
         # products only (2 per multiply-add): x Wx, h Wh_zr, (r*h) Wh_c
         flops = 2.0 * F * B * T * (D * 3 * H + 3 * H * H)
         nbytes = sum(t.nbytes for t in (*args, *outs))
-        bound_ms, bound_by = _bound(flops, nbytes)
-        lines.append(dict(
-            name="gru_scan", route="cuda",
-            source="src/repro_torch/csrc/gru_scan.cu",
-            replaces="src/repro/kernels/gru/gru.py:27",
-            launches=sum(c["gru_scan"] for c in paths.values()),
-            launches_by_path={p: c["gru_scan"] for p, c in paths.items()},
-            max_abs_err=worst["gru_scan"],
-            ms=_device_ms(lambda: gru_scan(*args)),
-            plain_ms=_device_ms(lambda: gru_scan_ref(*args)),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            eager_ms=_eager_ms(lambda: gru_scan(*args)),
-            plain_eager_ms=_eager_ms(lambda: gru_scan_ref(*args)),
-            shape=f"F={F} B={B} T={T} D={D} H={H}"))
+        main = f"F={F} B={B} T={T} D={D} H={H}"
+        timings = {main: _timed(lambda: gru_scan(*args),
+                                lambda: gru_scan_ref(*args), flops, nbytes,
+                                eager=True)}
+        lines.append(_by_shape(dict(
+            **common("gru_scan"), source="src/repro_torch/csrc/gru_scan.cu",
+            replaces="src/repro/kernels/gru/gru.py:27"), timings, main))
 
-        lib, (theta, y0, us) = _rk4_inputs(gen, dev, (64,), 24, 1)
-        idx = lib.indices_on(dev)
-        (B, n, L), (T, m), O = theta.shape, us.shape[1:], idx.shape[1]
-        ys = rk4_poly_solve(theta, y0, us, dt=0.01, library=lib)
-        # per right-hand side: (O-1) products per term for Phi, n*L FMAs
-        flops = 4.0 * B * T * (L * (O - 1) + 2 * n * L)
-        nbytes = sum(t.nbytes for t in (theta, y0, us, idx, ys))
-        bound_ms, bound_by = _bound(flops, nbytes)
-        kern = lambda: rk4_poly_solve(theta, y0, us, dt=0.01, library=lib)
-        plain = lambda: rk4_poly_solve_ref(theta, y0, us, 0.01, idx)
-        lines.append(dict(
-            name="rk4_poly", route="cuda",
-            source="src/repro_torch/csrc/rk4_poly.cu",
-            replaces="src/repro/kernels/rk4/rk4.py:38",
-            launches=sum(c["rk4_poly"] for c in paths.values()),
-            launches_by_path={p: c["rk4_poly"] for p, c in paths.items()},
-            max_abs_err=worst["rk4_poly"],
-            ms=_device_ms(kern), plain_ms=_device_ms(plain),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            eager_ms=_eager_ms(kern), plain_eager_ms=_eager_ms(plain),
-            shape=f"B={B} T={T} n={n} L={L} O={O} m={m}"))
+        timings = {}
+        for label, (lead, T) in RK4_SHAPES.items():
+            lib, (theta, y0, us) = _rk4_inputs(gen, dev, lead, T, 1)
+            idx = lib.indices_on(dev)
+            Bf, n, L, O = int(np.prod(lead)), 3, lib.size, idx.shape[1]
+            ys = rk4_poly_solve(theta, y0, us, dt=0.01, library=lib)
+            # per right-hand side: (O-1) products per term for Phi, n*L FMAs
+            flops = 4.0 * Bf * T * (L * (O - 1) + 2 * n * L)
+            nbytes = sum(t.nbytes for t in (theta, y0, us, idx, ys))
+            flat = [t.reshape((Bf,) + t.shape[len(lead):])
+                    for t in (theta, y0, us)]
+            timings[label] = _timed(
+                lambda a=(theta, y0, us), lb=lib: rk4_poly_solve(
+                    *a, dt=0.01, library=lb),
+                lambda f=flat, ix=idx: rk4_poly_solve_ref(*f, 0.01, ix),
+                flops, nbytes, eager=label == "refit B=64 T=24")
+        lines.append(_by_shape(dict(
+            **common("rk4_poly"), source="src/repro_torch/csrc/rk4_poly.cu",
+            replaces="src/repro/kernels/rk4/rk4.py:38"), timings,
+            "refit B=64 T=24"))
 
-        from repro_torch.kernels.linear_scan.ops import linear_scan
-        from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
-        B, H, T, K, V, C = 1, 40, 2048, 64, 64, 64
-        q, k, v, w, u = _scan_inputs(gen, dev, B, H, T, torch.bfloat16)
-        o, sf = linear_scan(q, k, v, w, u, mode="rwkv6", chunk=C)
-        nbytes = sum(t.nbytes for t in (q, k, v, w, u, o, sf))
-        bound_ms, bound_by = _bound(_scan_work(B, H, T, K, V, C, True),
-                                    nbytes)
-        kern = lambda: linear_scan(q, k, v, w, u, mode="rwkv6", chunk=C)
-        plain = lambda: linear_scan_chunked(q, k, v, w, u, mode="rwkv6",
-                                            chunk=C)
-        lines.append(dict(
-            name="linear_scan", route="cuda",
+        timings, pairwise = {}, {}
+        K = V = C = 64
+        for label, (B, H, T) in SCAN_SHAPES.items():
+            q, k, v, w, u = _scan_inputs(gen, dev, B, H, T, torch.bfloat16)
+            o, sf = linear_scan(q, k, v, w, u, mode="rwkv6", chunk=C)
+            nbytes = sum(t.nbytes for t in (q, k, v, w, u, o, sf))
+            f32, tf32 = _scan_work(B, H, T, K, V, C, True, True)
+            timings[label] = _timed(
+                lambda a=(q, k, v, w, u): linear_scan(*a, mode="rwkv6",
+                                                      chunk=C),
+                lambda a=(q, k, v, w, u): linear_scan_chunked(
+                    *a, mode="rwkv6", chunk=C),
+                f32, nbytes, plain_reps=3, tf32_flops=tf32,
+                eager=label == "T=2048")
+            pairwise[label] = _bound(
+                _scan_work_pairwise(B, H, T, K, V, C, True), nbytes)[0]
+            if label == "T=2048":
+                scan_launches(lambda a=(q, k, v, w, u): linear_scan(
+                    *a, mode="rwkv6", chunk=C))
+        line = _by_shape(dict(
+            **common("linear_scan"),
             source="src/repro_torch/csrc/linear_scan.cu",
-            replaces="src/repro/kernels/linear_scan/linear_scan.py:28",
-            launches=sum(c["linear_scan"] for c in paths.values()),
-            launches_by_path={p: c["linear_scan"] for p, c in paths.items()},
-            max_abs_err=worst["linear_scan"],
-            ms=_device_ms(kern), plain_ms=_device_ms(plain, reps=5),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            eager_ms=_eager_ms(kern), plain_eager_ms=_eager_ms(plain,
-                                                               reps=20),
-            shape=f"B={B} H={H} T={T} K={K} V={V} C={C} rwkv6 bf16"))
-    for line in lines:
-        line["kernel_ms"] = line["ms"]
+            replaces="src/repro/kernels/linear_scan/linear_scan.py:28"),
+            timings, "T=2048")
+        line["bound_ms_pairwise_form"] = pairwise["T=2048"]
+        line["shape"] = f"B=1 H=40 T=2048 K={K} V={V} C={C} rwkv6 bf16"
+        lines.append(line)
     return lines
+
+
+def scan_launches(fn, calls: int = 10):
+    """Device time of each of the scan's three launches (chunk states, the
+    scan across chunks, chunk outputs) under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = [(k, e.self_device_time_total / e.count / 1e3)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+             for k in OWN_KERNELS if k in e.key]
+    if not parts:
+        print("linear_scan launches: not measured (no device events)")
+        return
+    print("linear_scan launches at B=1 H=40 T=2048, device ms per call: "
+          + ", ".join(f"{k} {t:.4f}" for k, t in parts))
 
 
 def counted(paths: dict, path: str, fn, quiet: bool = False):
@@ -716,6 +824,10 @@ def profiled(what: str, fn, top: int = 8):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+    own = [(k, e) for e in kernels for k in OWN_KERNELS if k in e.key]
+    print("  the port's kernels: " + (", ".join(
+        f"{k} {e.self_device_time_total / 1e3:.3f} ms in {e.count}"
+        for k, e in own) or "none"))
 
 
 def profile_ticks(srv, ys, us):
@@ -731,15 +843,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
     from repro_torch.kernels import backend
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
 
     print("== 1. build")
     t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 // Fused RK4 polynomial-ODE integrator for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rk4/rk4.py::_rk4_kernel
-// (launched by rk4_poly_solve_pallas).  Same contract as kernels/rk4/ref.py:
+// (line 38, launched by rk4_poly_solve_pallas).  Same contract as
+// kernels/rk4/ref.py:
 //
 //   dY/dt = Theta . Phi(Y, u),  Phi_l = prod_o Xaug[term_idx[l, o]],
 //   Xaug = [1, Y, u],  zero-order-hold u over each step,
@@ -9,97 +10,210 @@
 // theta [B, n, L], y0 [B, n], us [B, T, m], term_idx [L, O] int32
 // -> ys [B, T+1, n] with y0 in row 0; fp32 throughout.
 //
-// One thread per instance; the T-step loop runs inside the thread.  The
-// block's Theta rows (n*L floats per instance) are staged in shared memory,
-// coefficient-major ([n*L][block]) so that the threads of a warp read
-// consecutive words, and term_idx is staged beside them.  Phi is evaluated
-// by direct indexing into the thread's own Xaug: the TPU kernel's one-hot
-// gather-as-matmul (rk4.py:8-11, :44-51) worked around a missing lane gather
-// and has no place here.  m == 0 needs no dummy input channel: the kernel
-// never reads `us` then.  The ragged batch edge is masked in the kernel.
+// What bounds it.  At the refit shape (B = 64, T = 24, n = 3, L = 35, O = 3,
+// m = 1) the work is about 1.7 MFLOP against 53 KB moved: 0.026 us of f32
+// operations, 0.016 us of memory.  Neither can be approached.  Each
+// instance walks a chain of 4*T dependent right-hand sides (96 here), so the
+// floor is the chain's latency: 4*T x the latency of one right-hand side
+// (a round of shuffles for Phi, a 5-level shuffle reduction, a few FMAs;
+// about 200 clocks, so about 10 us at 96 steps).
 //
-// Bound on this card, at the refit shape (B = 64 instances, T = 24, n = 3,
-// L = 35, O = 3, m = 1): about 2 MFLOP and 53 KB moved, i.e. 0.03 us of
-// fp32 work and 0.016 us of memory traffic.  Neither is the limit: each
-// thread walks a chain of 4*T dependent right-hand-side evaluations, so the
-// kernel is latency-bound; keeping Theta on chip for the whole chain is what
-// the design does about it.
+// What the design does about it: one warp per instance, so that every
+// right-hand side is spread over 32 lanes and nothing of the chain touches
+// local or shared memory.
+//   * Lane j < 1+n+m holds Xaug[j] as a scalar (1, a state, or an input).
+//   * Lane j owns the terms l = j, j+32, ...  The first GR <= 2 groups of
+//     32 terms keep their term_idx rows and their n Theta coefficients in
+//     registers, loaded once; any further groups (L > 64) are read from
+//     device memory (L1) each right-hand side, so L is not limited.  Every
+//     library of the JAX package's 8 systems has L <= 35.
+//   * Phi_l is the product of O __shfl_sync reads of Xaug, in the plain
+//     version's factor order.
+//   * The n sums over l are butterfly __shfl_xor_sync reductions,
+//     interleaved across the n outputs; afterwards lane 1+i keeps k_i.
+//   * The RK4 combination runs on the state lanes in scalars, and the same
+//     lanes write the rows of ys.  Input lanes read the next step's u ahead
+//     of the chain; m == 0 never reads `us`.
+// Every per-lane array is indexed by compile-time constants only: the
+// kernel is instantiated for n = 1..4 exactly, with no guards in the loops
+// over the outputs, and for n <= 16 with warp-uniform guards, so nothing
+// lives in a stack frame (ptxas: 0 bytes for every instantiation).  Blocks
+// of kWarps warps: B = 64 puts 64 warps on 16 SMs, one per scheduler; a
+// fleet of 2048 instances is 512 blocks, about four a SM.  The ragged
+// batch edge is masked per warp.
+//
+// Measured (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3, 700.00 W):
+// 0.023 ms at the refit shape, 0.030 ms at T = 32, 0.045 ms at T = 50,
+// 0.035 ms for 2048 instances at T = 32, about 2.3x the estimated chain
+// floor.  The one-thread-per-instance design before it took 0.963 ms at
+// the refit shape on the same card.  Times in PERF.md.
 
 #include <cuda_runtime.h>
 
 #define RK4_MAX_N 16
-#define RK4_MAX_AUG 32   // 1 + n + m
+#define RK4_MAX_AUG 32   // 1 + n + m: one lane each
 
 namespace {
 
-__device__ __forceinline__ void poly_rhs(const float* __restrict__ y,
-                                         float* __restrict__ aug,
-                                         const float* __restrict__ s_theta,
-                                         const int* __restrict__ s_idx,
-                                         float* __restrict__ out,
-                                         int n, int L, int O, int stride) {
-  for (int i = 0; i < n; ++i) aug[1 + i] = y[i];
-  for (int i = 0; i < n; ++i) out[i] = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    const int* idx = s_idx + l * O;
-    float phi = aug[idx[0]];
-    for (int o = 1; o < O; ++o) phi *= aug[idx[o]];
-    for (int i = 0; i < n; ++i)
-      out[i] = fmaf(s_theta[(i * L + l) * stride], phi, out[i]);
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Per-lane registers of one instance: GR term groups of Theta and
+// term_idx, OC = 3 or 4 factors each.  A library of order O < OC runs with
+// its missing factors pointing at Xaug[0] = 1 (a product by 1 is exact);
+// factors past the fourth are read from memory.
+template <int OC, int GR, int NP>
+struct Terms {
+  float coef[GR][NP];
+  int idx[GR][OC];
+};
+
+// Is output i one of the n?  NP < RK4_MAX_N means n == NP exactly, and the
+// loops over the outputs carry no guard.
+template <int NP>
+__device__ __forceinline__ bool live(int i, int n) {
+  return NP < RK4_MAX_N || i < n;
+}
+
+// One right-hand side: returns k_i on lane 1+i (0 elsewhere).
+template <int OC, int GR, int NP>
+__device__ __forceinline__ float poly_rhs(
+    float aug, const Terms<OC, GR, NP>& r, const float* __restrict__ th,
+    const int* __restrict__ term_idx, int lane, int n, int L, int O, int G) {
+  float part[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) part[i] = 0.0f;
+#pragma unroll
+  for (int g = 0; g < GR; ++g) {
+    float phi = __shfl_sync(kFull, aug, r.idx[g][0]);
+#pragma unroll
+    for (int o = 1; o < OC; ++o) phi *= __shfl_sync(kFull, aug, r.idx[g][o]);
+    if (O > OC) {
+      const int l = lane + 32 * g;
+      const int* ix = term_idx + (size_t)(l < L ? l : 0) * O;
+      for (int o = OC; o < O; ++o)
+        phi *= __shfl_sync(kFull, aug, l < L ? __ldg(ix + o) : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      if (live<NP>(i, n)) part[i] = fmaf(r.coef[g][i], phi, part[i]);
+  }
+  for (int g = GR; g < G; ++g) {             // groups past the registers
+    const int l = lane + 32 * g;
+    const bool ok = l < L;
+    const int* ix = term_idx + (size_t)(ok ? l : 0) * O;
+    float phi = __shfl_sync(kFull, aug, ok ? __ldg(ix) : 0);
+    for (int o = 1; o < O; ++o)
+      phi *= __shfl_sync(kFull, aug, ok ? __ldg(ix + o) : 0);
+    if (ok) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        if (live<NP>(i, n))
+          part[i] = fmaf(__ldg(th + (size_t)i * L + l), phi, part[i]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      if (live<NP>(i, n)) part[i] += __shfl_xor_sync(kFull, part[i], off);
+  }
+  float mine = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+    if (live<NP>(i, n) && lane == 1 + i) mine = part[i];
+  return mine;
+}
+
+template <int OC, int GR, int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+rk4_poly_kernel(const float* __restrict__ theta, const float* __restrict__ y0,
+                const float* __restrict__ us,
+                const int* __restrict__ term_idx, float* __restrict__ ys,
+                int B, int n, int m, int L, int O, int T, float half_dt,
+                float dt, float dt_sixth) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= B) return;                        // whole warps: no block sync
+  const int G = (L + 31) / 32;
+  const float* th = theta + (size_t)b * n * L;
+
+  Terms<OC, GR, NP> r;
+#pragma unroll
+  for (int g = 0; g < GR; ++g) {
+    const int l = lane + 32 * g;
+    const bool ok = l < L;
+#pragma unroll
+    for (int o = 0; o < OC; ++o)
+      r.idx[g][o] = (ok && o < O) ? __ldg(term_idx + (size_t)l * O + o) : 0;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      r.coef[g][i] =
+          (ok && live<NP>(i, n)) ? __ldg(th + (size_t)i * L + l) : 0.0f;
+  }
+
+  const bool is_state = lane >= 1 && lane <= n;
+  const bool is_input = lane > n && lane <= n + m;
+  const int si = lane - 1, ui = lane - 1 - n;
+  float y = is_state ? y0[(size_t)b * n + si] : 0.0f;
+  float* out = ys + (size_t)b * (T + 1) * n;
+  if (is_state) out[si] = y;
+  const float* ub = us + (size_t)b * T * m;   // read only by input lanes
+  float u_next = (is_input && T > 0) ? __ldg(ub + ui) : 0.0f;
+  for (int t = 0; t < T; ++t) {
+    const float u = u_next;
+    if (is_input && t + 1 < T) u_next = __ldg(ub + (size_t)(t + 1) * m + ui);
+    const float fixed = lane == 0 ? 1.0f : (is_input ? u : 0.0f);
+    const float k1 = poly_rhs<OC, GR, NP>(is_state ? y : fixed, r, th,
+                                          term_idx, lane, n, L, O, G);
+    const float k2 = poly_rhs<OC, GR, NP>(is_state ? y + half_dt * k1 : fixed,
+                                          r, th, term_idx, lane, n, L, O, G);
+    const float k3 = poly_rhs<OC, GR, NP>(is_state ? y + half_dt * k2 : fixed,
+                                          r, th, term_idx, lane, n, L, O, G);
+    const float k4 = poly_rhs<OC, GR, NP>(is_state ? y + dt * k3 : fixed, r,
+                                          th, term_idx, lane, n, L, O, G);
+    y = y + dt_sixth * (k1 + 2.0f * k2 + 2.0f * k3 + k4);
+    if (is_state) out[(size_t)(t + 1) * n + si] = y;
   }
 }
 
-__global__ void rk4_poly_kernel(const float* __restrict__ theta,
-                                const float* __restrict__ y0,
-                                const float* __restrict__ us,
-                                const int* __restrict__ term_idx,
-                                float* __restrict__ ys,
-                                int B, int n, int m, int L, int O, int T,
-                                float half_dt, float dt, float dt_sixth) {
-  extern __shared__ float smem[];
-  const int nb = blockDim.x;
-  const int nL = n * L;
-  float* s_theta = smem;                                     // [nL][nb]
-  int* s_idx = reinterpret_cast<int*>(s_theta + (size_t)nL * nb);  // [L*O]
+template <int OC, int GR, int NP>
+int launch(const float* theta, const float* y0, const float* us,
+           const int* term_idx, float* ys, int B, int n, int m, int L, int O,
+           int T, double dt, cudaStream_t stream) {
+  const int grid = (B + kWarps - 1) / kWarps;
+  rk4_poly_kernel<OC, GR, NP><<<grid, kThreads, 0, stream>>>(
+      theta, y0, us, term_idx, ys, B, n, m, L, O, T, (float)(0.5 * dt),
+      (float)dt, (float)(dt / 6.0));
+  return (int)cudaGetLastError();
+}
 
-  const int base = blockIdx.x * nb;
-  const int count = min(nb, B - base);
-  const float* theta_blk = theta + (size_t)base * nL;
-  for (int e = threadIdx.x; e < count * nL; e += nb) {
-    const int inst = e / nL;
-    s_theta[(e - inst * nL) * nb + inst] = theta_blk[e];
+template <int OC, int GR>
+int launch_n(const float* theta, const float* y0, const float* us,
+             const int* term_idx, float* ys, int B, int n, int m, int L,
+             int O, int T, double dt, cudaStream_t stream) {
+#define RK4_LAUNCH(NP)                                                       \
+  launch<OC, GR, NP>(theta, y0, us, term_idx, ys, B, n, m, L, O, T, dt, \
+                     stream)
+  switch (n) {
+    case 1: return RK4_LAUNCH(1);
+    case 2: return RK4_LAUNCH(2);
+    case 3: return RK4_LAUNCH(3);
+    case 4: return RK4_LAUNCH(4);
+    default: return RK4_LAUNCH(RK4_MAX_N);
   }
-  for (int e = threadIdx.x; e < L * O; e += nb) s_idx[e] = term_idx[e];
-  __syncthreads();
+#undef RK4_LAUNCH
+}
 
-  const int lane = threadIdx.x;
-  const int bi = base + lane;
-  if (bi >= B) return;
-  const float* my_theta = s_theta + lane;
-
-  float y[RK4_MAX_N], k1[RK4_MAX_N], k2[RK4_MAX_N], k3[RK4_MAX_N],
-      k4[RK4_MAX_N], tmp[RK4_MAX_N], aug[RK4_MAX_AUG];
-  aug[0] = 1.0f;
-  float* out = ys + (size_t)bi * (T + 1) * n;
-  for (int i = 0; i < n; ++i) {
-    y[i] = y0[(size_t)bi * n + i];
-    out[i] = y[i];
-  }
-  for (int t = 0; t < T; ++t) {
-    const float* u = us + ((size_t)bi * T + t) * m;
-    for (int q = 0; q < m; ++q) aug[1 + n + q] = u[q];
-    poly_rhs(y, aug, my_theta, s_idx, k1, n, L, O, nb);
-    for (int i = 0; i < n; ++i) tmp[i] = y[i] + half_dt * k1[i];
-    poly_rhs(tmp, aug, my_theta, s_idx, k2, n, L, O, nb);
-    for (int i = 0; i < n; ++i) tmp[i] = y[i] + half_dt * k2[i];
-    poly_rhs(tmp, aug, my_theta, s_idx, k3, n, L, O, nb);
-    for (int i = 0; i < n; ++i) tmp[i] = y[i] + dt * k3[i];
-    poly_rhs(tmp, aug, my_theta, s_idx, k4, n, L, O, nb);
-    for (int i = 0; i < n; ++i) {
-      y[i] = y[i] + dt_sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
-      out[(size_t)(t + 1) * n + i] = y[i];
-    }
-  }
+template <int OC>
+int launch_groups(const float* theta, const float* y0, const float* us,
+                  const int* term_idx, float* ys, int B, int n, int m, int L,
+                  int O, int T, double dt, cudaStream_t stream) {
+  return L <= 32 ? launch_n<OC, 1>(theta, y0, us, term_idx, ys, B, n, m, L,
+                                   O, T, dt, stream)
+                 : launch_n<OC, 2>(theta, y0, us, term_idx, ys, B, n, m, L,
+                                   O, T, dt, stream);
 }
 
 }  // namespace
@@ -107,24 +221,17 @@ __global__ void rk4_poly_kernel(const float* __restrict__ theta,
 extern "C" int rk4_poly_max_n() { return RK4_MAX_N; }
 extern "C" int rk4_poly_max_aug() { return RK4_MAX_AUG; }
 
-extern "C" int rk4_poly_smem_bytes(int n, int L, int O, int nb) {
-  return (n * L * nb) * (int)sizeof(float) + L * O * (int)sizeof(int);
-}
-
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int rk4_poly_launch(const float* theta, const float* y0,
                                const float* us, const int* term_idx,
                                float* ys, int B, int n, int m, int L, int O,
-                               int T, double dt, int nb, void* stream) {
-  const int smem = rk4_poly_smem_bytes(n, L, O, nb);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rk4_poly_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int grid = (B + nb - 1) / nb;
-  rk4_poly_kernel<<<grid, nb, smem, (cudaStream_t)stream>>>(
-      theta, y0, us, term_idx, ys, B, n, m, L, O, T, (float)(0.5 * dt),
-      (float)dt, (float)(dt / 6.0));
-  return (int)cudaGetLastError();
+                               int T, double dt, void* stream) {
+  if (B < 1 || n < 1 || n > RK4_MAX_N || m < 0 || 1 + n + m > RK4_MAX_AUG ||
+      L < 1 || O < 1 || T < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return O <= 3 ? launch_groups<3>(theta, y0, us, term_idx, ys, B, n, m, L, O,
+                                   T, dt, st)
+                : launch_groups<4>(theta, y0, us, term_idx, ys, B, n, m, L, O,
+                                   T, dt, st);
 }

@@ -134,17 +134,15 @@ def _declare(lib) -> None:
     lib.gru_scan_launch.restype = i32
     lib.gru_scan_smem_bytes.argtypes = [i32] * 3
     lib.gru_scan_smem_bytes.restype = i32
-    lib.rk4_poly_launch.argtypes = [vp] * 5 + [i32] * 6 + [f64, i32, vp]
+    lib.rk4_poly_launch.argtypes = [vp] * 5 + [i32] * 6 + [f64, vp]
     lib.rk4_poly_launch.restype = i32
-    lib.rk4_poly_smem_bytes.argtypes = [i32] * 4
-    lib.rk4_poly_smem_bytes.restype = i32
     lib.rk4_poly_max_n.argtypes = []
     lib.rk4_poly_max_n.restype = i32
     lib.rk4_poly_max_aug.argtypes = []
     lib.rk4_poly_max_aug.restype = i32
-    lib.linear_scan_launch.argtypes = [vp] * 8 + [i32] * 9 + [vp]
+    lib.linear_scan_launch.argtypes = [vp] * 10 + [i32] * 8 + [vp]
     lib.linear_scan_launch.restype = i32
-    lib.linear_scan_smem_bytes.argtypes = [i32] * 4
+    lib.linear_scan_smem_bytes.argtypes = [i32] * 3
     lib.linear_scan_smem_bytes.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

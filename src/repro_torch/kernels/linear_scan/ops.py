@@ -1,7 +1,8 @@
 """Public wrapper for the chunked linear recurrence (RWKV-6 / Mamba-2 SSD):
 shape checks, then dispatch on the device of the inputs -- CPU tensors run
 the plain chunked version (kernels/linear_scan/ref.py), CUDA tensors launch
-the hand-written kernel (csrc/linear_scan.cu) or raise.
+the hand-written kernel (csrc/linear_scan.cu: three launches a call -- chunk
+states, the scan across chunks, chunk outputs -- counted as one) or raise.
 
 Forward only: the JAX Pallas path has no backward either.  On CUDA a call
 that would need a gradient raises; training comes with its own kernel.
@@ -18,20 +19,7 @@ from repro_torch.kernels.linear_scan.ref import MODES, linear_scan_chunked
 __all__ = ["linear_scan", "linear_scan_kernel"]
 
 _MAX_DIM = 64          # C, K and V limits of the kernel's shared-memory tiles
-_MAX_ROW_GROUPS = 8
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_sm_count: dict[int, int] = {}
-
-
-def _row_groups(bh: int, chunk: int, device: torch.device) -> int:
-    """Blocks that share one (b, h) sequence, each owning every R-th row of
-    a chunk: enough to put one block on each SM when B*H is small (B=1,
-    H=40 gives R=3 on 132 SMs), 1 once B*H fills the card."""
-    idx = device.index if device.index is not None else 0
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return max(1, min(_MAX_ROW_GROUPS, chunk, _sm_count[idx] // max(bh, 1)))
 
 
 def linear_scan_kernel(q, k, v, w, u, s0, *, mode: str, chunk: int):
@@ -77,16 +65,21 @@ def linear_scan_kernel(q, k, v, w, u, s0, *, mode: str, chunk: int):
               torch.zeros((BH, K, V), dtype=torch.float32, device=dev))
         return o, sf
     sf = torch.empty((BH, K, V), dtype=torch.float32, device=dev)
-    R = _row_groups(BH, C, dev)
+    # scratch of the three launches: each chunk's state contribution,
+    # overwritten by the state it reads, and its decay exp(cw_end)
+    N = -(-T // C)
+    d_state = torch.empty((BH, N, K, V), dtype=torch.float32, device=dev)
+    a_end = torch.empty((BH, N, K), dtype=torch.float32, device=dev)
     lib = backend.load_library()
-    smem = lib.linear_scan_smem_bytes(K, V, C, R)
+    smem = lib.linear_scan_smem_bytes(K, V, C)
     if smem > backend.MAX_SMEM:
         raise ValueError(f"linear_scan kernel: {smem} bytes of shared memory "
                          f"exceeds {backend.MAX_SMEM}")
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.linear_scan_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), ptr(u),
-        ptr(s0), o.data_ptr(), sf.data_ptr(), BH, H, T, K, V, C, R,
+        ptr(s0), o.data_ptr(), sf.data_ptr(), d_state.data_ptr(),
+        a_end.data_ptr(), BH, H, T, K, V, C,
         int(mode == "rwkv6"), int(q.dtype == torch.bfloat16),
         ctypes.c_void_p(backend.cuda_stream(dev)))
     backend.check_cuda(lib, err, "linear_scan")

@@ -21,8 +21,6 @@ from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
 
 __all__ = ["rk4_poly_solve", "rk4_poly_kernel"]
 
-_BLOCK = 32            # instances (threads) per block
-
 
 def rk4_poly_kernel(theta, y0, us, term_idx, dt: float):
     """Launch the CUDA kernel (no autograd).  theta [B, n, L], y0 [B, n],
@@ -49,18 +47,12 @@ def rk4_poly_kernel(theta, y0, us, term_idx, dt: float):
         raise ValueError(f"rk4 kernel: n={n}, m={m} exceed the kernel's "
                          f"limits (n <= {lib.rk4_poly_max_n()}, 1+n+m <= "
                          f"{lib.rk4_poly_max_aug()})")
-    nb = _BLOCK
-    while nb > 1 and lib.rk4_poly_smem_bytes(n, L, O, nb) > backend.MAX_SMEM:
-        nb //= 2
-    if lib.rk4_poly_smem_bytes(n, L, O, nb) > backend.MAX_SMEM:
-        raise ValueError(f"rk4 kernel: theta rows of {n * L} floats do not "
-                         "fit in shared memory")
     ys = torch.empty((B, T + 1, n), dtype=torch.float32, device=dev)
     if B == 0:
         return ys
     err = lib.rk4_poly_launch(
         theta.data_ptr(), y0.data_ptr(), us.data_ptr() if m else None,
-        term_idx.data_ptr(), ys.data_ptr(), B, n, m, L, O, T, float(dt), nb,
+        term_idx.data_ptr(), ys.data_ptr(), B, n, m, L, O, T, float(dt),
         ctypes.c_void_p(backend.cuda_stream(dev)))
     backend.check_cuda(lib, err, "rk4_poly_solve")
     rk4_poly_solve.launches += 1

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.library import PolyLibrary, make_library
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.rk4.ops import rk4_poly_solve
 
 __all__ = ["F8Crusader", "f8_rows", "simulate", "sum_of_sines"]
@@ -92,13 +93,15 @@ def sum_of_sines(generator: torch.Generator, batch: int, horizon: int,
 
 def simulate(system: F8Crusader, generator: torch.Generator, *, batch: int,
              horizon: int, substeps: int = 10, noise_std: float = 0.0,
-             y0=None, us=None, device="cpu"):
+             y0=None, us=None, device=None):
     """Ground-truth telemetry: (ys [batch, horizon+1, n] clean, ys_noisy,
     us [batch, horizon, m]), integrated with `substeps` RK4 sub-steps per
     sample (zero-order-hold inputs) through the port's rk4_poly_solve; the
     noise is Gaussian, scaled by each trace's per-channel std, as in the JAX
     package's `simulate_batch`.  `y0` and `us` default to draws from
-    `generator` (on the CPU)."""
+    `generator` (on the CPU).  `device=None` integrates on the card and
+    raises without one; pass "cpu" for the plain path."""
+    device = resolve_device(device)
     lib = system.library()
     if y0 is None:
         lo = torch.tensor(system.y0_low)

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.backend import resolve_device
+
 __all__ = ["PackedFleet", "fleet_scores", "fleet_pressure"]
 
 
@@ -79,12 +81,14 @@ def _priorities(fleet: PackedFleet, min_samples: int, sw: float, dw: float,
 
 
 def fleet_scores(fleet: PackedFleet, *, min_samples: int, sw: float,
-                 dw: float, k: int, device="cpu"):
+                 dw: float, k: int, device=None):
     """One pass over the fleet: (cand_rows [k], cand_prio [k] float32,
     n_waiting, pressure) as numpy/python values.  cand rows are the top-k
     READY, UNSLOTTED rows by priority, ties toward the lower row; rows whose
-    cand_prio is -inf are padding (fewer than k waiting)."""
+    cand_prio is -inf are padding (fewer than k waiting).  `device=None`
+    scores on the card and raises without one."""
     k = max(1, min(k, fleet.capacity))
+    device = resolve_device(device)
     prio, ready = _priorities(fleet, min_samples, sw, dw, device)
     pressure = torch.sum(torch.where(ready, prio, 0.0))
     waiting = ready & ~torch.from_numpy(fleet.resident).to(device)
@@ -101,7 +105,8 @@ def fleet_scores(fleet: PackedFleet, *, min_samples: int, sw: float,
 
 
 def fleet_pressure(fleet: PackedFleet, *, min_samples: int, sw: float,
-                   dw: float, device="cpu") -> float:
+                   dw: float, device=None) -> float:
     """Aggregate refit demand: summed priority over ready rows."""
+    device = resolve_device(device)
     prio, ready = _priorities(fleet, min_samples, sw, dw, device)
     return float(torch.sum(torch.where(ready, prio, 0.0)))

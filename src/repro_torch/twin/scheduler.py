@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.twin.packed import PackedFleet, fleet_pressure, fleet_scores
 
 __all__ = ["TwinRecord", "SchedulerConfig", "SchedulePlan", "SchedulerMetrics",
@@ -248,10 +249,10 @@ class PackedRefitScheduler:
 
     def __init__(self, cfg: SchedulerConfig,
                  metrics: SchedulerMetrics | None = None, *,
-                 quantum: float = 0.25, device="cpu"):
+                 quantum: float = 0.25, device=None):
         self.cfg = cfg
         self.metrics = metrics
-        self.device = device
+        self.device = resolve_device(device)
         self.queue = PriorityBuckets(quantum)
         self.last_pressure = 0.0
         self.last_waiting = 0

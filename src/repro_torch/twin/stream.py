@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import make_ring_windows, ring_latest
+from repro_torch.kernels.backend import resolve_device
 
 __all__ = ["RingConfig", "TelemetryRing", "StagingBuffer", "StagingOverflow",
            "FlushBatch", "prepare_flush"]
@@ -42,9 +43,9 @@ class RingConfig:
 
 
 class TelemetryRing:
-    def __init__(self, cfg: RingConfig, *, device="cpu"):
+    def __init__(self, cfg: RingConfig, *, device=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ #
     def init(self):

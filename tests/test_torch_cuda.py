@@ -6,14 +6,16 @@ nothing of JAX, so it also runs on a machine with PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes are the serving path's (GRU: 8 refit slots x B windows, T=24, D=4,
-H=32; RK4: n=3, order 3, T=24) with a full and a ragged batch.  Tolerances:
-forward GRU 1e-5 absolute and RK4 rtol 1e-4 / atol 1e-5 (fp32 sums in
-another order than the plain version); gradients rtol 1e-4 / atol 1e-5 (the
-backward replays the plain version on the saved inputs).  The linear scan
-(RWKV-6 prefill: H=40, K=V=64, chunk 64; plus a short, a wide and an odd
-shape) is held to its plain chunked version at rtol = atol = 2e-4, the JAX
-package's f32 tolerance: both sides upcast the same bf16 or f32 values and
-sum in f32 in another order.
+H=32; RK4: n=3, order 3, T=24) with a full and a ragged batch, and RK4 at
+one instance, a fleet of 2048, n = 1 without inputs, L past two term
+groups and orders above 4.  Tolerances: forward GRU 1e-5 absolute and RK4
+rtol 1e-4 / atol 1e-5 (fp32 sums in another order than the plain version);
+gradients rtol 1e-4 / atol 1e-5 (the backward replays the plain version on
+the saved inputs).  The linear scan (RWKV-6 prefill: H=40, K=V=64, chunk
+64; plus a short, a wide, an odd, a long (B*H=160, T=4096), a ragged
+(T=2047) and a 24-row-chunk shape) is held to its plain chunked version at
+rtol = atol = 2e-4, the JAX package's f32 tolerance: both sides upcast the
+same bf16 or f32 values and sum in f32 in another order.
 """
 import numpy as np
 import pytest
@@ -98,6 +100,31 @@ def test_rk4_kernel_matches_plain_version(cuda, B, m):
         torch.testing.assert_close(g, r, **GRAD)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m,order,T", [
+    (1, 3, 1, 3, 50),        # predict: one instance, L = 35 > 32
+    (2048, 3, 1, 3, 32),     # a fleet: 512 blocks
+    (7, 1, 0, 3, 24),        # n = 1, m = 0: no input lane
+    (5, 6, 1, 3, 10),        # L = 120: term groups past the registers
+    (3, 2, 1, 6, 8),         # order 6: padded to 8 factors
+    (2, 16, 15, 1, 6),       # n = 16, 1 + n + m = 32 lanes
+], ids=lambda x: str(x))
+def test_rk4_kernel_shapes(cuda, B, n, m, order, T):
+    rng = np.random.default_rng(B + n + m + order)
+    lib = make_library(n, m, order)
+    theta, y0, us = (torch.tensor(a, dtype=torch.float32, device=cuda)
+                     for a in (0.05 * rng.normal(size=(B, n, lib.size)),
+                               0.3 * rng.normal(size=(B, n)),
+                               0.2 * rng.normal(size=(B, T, m))))
+    before = rk4_poly_solve.launches
+    with torch.no_grad():
+        ys = rk4_poly_solve(theta, y0, us, dt=0.01, library=lib)
+    torch.cuda.synchronize()
+    assert rk4_poly_solve.launches == before + 1
+    ref = rk4_poly_solve_ref(theta, y0, us, 0.01, lib.indices_on(cuda))
+    torch.testing.assert_close(ys, ref, rtol=1e-4, atol=1e-5)
+
+
 def _scan_inputs(dev, B, H, T, K, V, dtype, seed, strong=False):
     rng = np.random.default_rng(seed)
     t = lambda a, dt=dtype: torch.tensor(a, dtype=torch.float32,
@@ -115,6 +142,9 @@ SCAN_SHAPES = {                      # (B, H, T, K, V, chunk)
     "short": (1, 40, 37, 64, 64, 64),
     "wide": (3, 48, 130, 64, 64, 64),
     "odd": (2, 3, 50, 10, 6, 16),
+    "long": (4, 40, 4096, 64, 64, 64),     # B*H = 160, 64 chunks
+    "ragged": (1, 8, 2047, 64, 64, 64),    # T not a multiple of 16
+    "chunk24": (2, 4, 333, 32, 48, 24),    # chunks of three subchunks
 }
 
 

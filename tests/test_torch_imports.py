@@ -84,3 +84,28 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.cache_init(2, 64)
     assert ServeEngine(api, device="cpu").device == torch.device("cpu")
+
+    from repro_torch.systems.f8_crusader import F8Crusader, simulate
+    from repro_torch.twin.packed import (PackedFleet, fleet_pressure,
+                                         fleet_scores)
+    from repro_torch.twin.scheduler import (PackedRefitScheduler,
+                                            SchedulerConfig)
+    from repro_torch.twin.stream import RingConfig, TelemetryRing
+    ring_cfg = RingConfig(slots=2, capacity=16, n=3, m=1)
+    sched_cfg = SchedulerConfig(slots=2, min_samples=4)
+    packed = PackedFleet(4)
+    score = dict(min_samples=4, sw=1.0, dw=1.0)
+    gen = torch.Generator().manual_seed(0)
+    calls = {
+        "TelemetryRing": lambda **d: TelemetryRing(ring_cfg, **d),
+        "PackedRefitScheduler": lambda **d: PackedRefitScheduler(sched_cfg,
+                                                                 **d),
+        "fleet_scores": lambda **d: fleet_scores(packed, k=2, **score, **d),
+        "fleet_pressure": lambda **d: fleet_pressure(packed, **score, **d),
+        "simulate": lambda **d: simulate(F8Crusader(), gen, batch=1,
+                                         horizon=2, **d),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")          # the plain path still runs

@@ -3,10 +3,12 @@ package's, on the same numpy inputs.
 
 The JAX side runs its sequential oracle, its chunked reference and the
 Pallas kernel in interpret mode; the port runs its sequential oracle, its
-chunked version and the public wrapper on CPU tensors (which dispatches to
-the chunked version).  Tolerance rtol = atol = 2e-4, the JAX package's own
-f32 tolerance between its chunked forms and the oracle (sums over up to
-64 x 64 terms in another order).  The CUDA kernel is held against the
+chunked version, the public wrapper on CPU tensors (which dispatches to
+the chunked version) and the plain version of the CUDA kernel's own
+formulation (`linear_scan_subchunked`: chunk states, a scan across chunks,
+pivot-factored subchunk pairs).  Tolerance rtol = atol = 2e-4, the JAX
+package's own f32 tolerance between its chunked forms and the oracle (sums
+over up to 64 x 64 terms in another order).  The CUDA kernel is held against the
 plain chunked version by tests/test_torch_cuda.py, which skips without a
 card.
 """
@@ -21,7 +23,8 @@ from repro.kernels.linear_scan.ref import (linear_scan_chunked as
 from repro.kernels.linear_scan.ref import linear_scan_seq as jax_seq
 from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.kernels.linear_scan.ref import (linear_scan_chunked,
-                                                 linear_scan_seq)
+                                                 linear_scan_seq,
+                                                 linear_scan_subchunked)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -34,11 +37,13 @@ CASES = [
 ]
 
 
-def _inputs(seed, B, H, T, K, V):
+def _inputs(seed, B, H, T, K, V, strong=False):
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=0.5: (scale * rng.normal(size=s)).astype(np.float32)
-    # log-decay in [-0.22, -9e-4], the JAX tests' data-dependent range
-    w = -np.exp(rng.uniform(-7.0, -1.5, (B, H, T, K))).astype(np.float32)
+    # log-decay in [-0.22, -9e-4], the JAX tests' data-dependent range, or
+    # with `strong` in [-7.4, -0.37]: decays down to exp(-7.4) a step
+    lo, hi = (-1.0, 2.0) if strong else (-7.0, -1.5)
+    w = -np.exp(rng.uniform(lo, hi, (B, H, T, K))).astype(np.float32)
     return dict(q=f(B, H, T, K), k=f(B, H, T, K), v=f(B, H, T, V), w=w,
                 u=f(H, K, scale=0.3))
 
@@ -148,3 +153,46 @@ def test_cpu_wrapper_launches_no_kernel_and_checks_shapes():
         linear_scan(q, k, v, w, torch.zeros(3, 4), mode="rwkv6")
     with pytest.raises(ValueError, match="initial_state"):
         linear_scan(q, k, v, w, initial_state=torch.zeros(1, 2, 4, 5))
+
+
+# (B, H, T, K, V, chunk, strong) at the edges of the kernel's subchunks
+SUB_CASES = [
+    (1, 2, 13, 8, 8, 64, False),      # T < 16: one chunk, a partial subchunk
+    (2, 3, 65, 16, 8, 16, False),     # ragged T
+    (1, 2, 100, 16, 16, 24, False),   # chunk 24: three subchunks of 8
+    (2, 2, 128, 32, 64, 64, False),   # whole chunks of eight subchunks
+    (1, 2, 70, 16, 16, 64, True),     # decays down to exp(-7.4) a step
+]
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["zero", "carried"])
+@pytest.mark.parametrize("mode,bonus", [("ssd", False), ("rwkv6", True),
+                                        ("rwkv6", False)],
+                         ids=["ssd", "rwkv6", "rwkv6-no-u"])
+@pytest.mark.parametrize("case", SUB_CASES,
+                         ids=lambda c: "x".join(map(str, c[:6]))
+                         + ("-strong" if c[6] else ""))
+def test_subchunked_form_matches_jax(case, mode, bonus, carry):
+    """The plain version of the kernel's formulation against the JAX oracle,
+    chunked reference and interpret-mode Pallas kernel, from a zero or a
+    carried initial state."""
+    B, H, T, K, V, chunk, strong = case
+    a = _inputs(sum(case[:6]), B, H, T, K, V, strong=strong)
+    u = a["u"] if bonus else None
+    s0 = (0.1 * np.random.default_rng(T).normal(size=(B, H, K, V))
+          ).astype(np.float32) if carry else None
+    j0 = {} if s0 is None else dict(initial_state=jnp.asarray(s0))
+    t0 = {} if s0 is None else dict(initial_state=torch.from_numpy(s0))
+    want = {"jax seq": _jax(jax_seq, a, u, mode=mode, **j0),
+            "jax chunked": _jax(jax_chunked, a, u, mode=mode, chunk=chunk,
+                                **j0)}
+    if not (mode == "rwkv6" and u is None):   # see the test above
+        want["jax pallas"] = _jax(linear_scan_pallas, a, u, mode=mode,
+                                  chunk=chunk, interpret=True, **j0)
+    go, gs = _torch(linear_scan_subchunked, a, u, mode=mode, chunk=chunk,
+                    **t0)
+    assert go.shape == (B, H, T, V) and gs.shape == (B, H, K, V)
+    assert np.isfinite(go).all() and np.isfinite(gs).all()
+    for wname, (wo, ws) in want.items():
+        np.testing.assert_allclose(go, wo, **TOL, err_msg=f"o vs {wname}")
+        np.testing.assert_allclose(gs, ws, **TOL, err_msg=f"S vs {wname}")

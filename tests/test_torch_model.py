@@ -243,6 +243,6 @@ def test_f8_true_theta_and_simulation_match_jax():
                                           jnp.asarray(us[b]), 0.01,
                                           substeps=10)) for b in range(4)])
     ys, noisy, _ = simulate(tsys, torch.Generator().manual_seed(0), batch=4,
-                            horizon=40, y0=y0, us=us)
+                            horizon=40, y0=y0, us=us, device="cpu")
     np.testing.assert_allclose(ys.numpy(), want, rtol=0, atol=1e-5)
     assert torch.equal(noisy, ys)          # noise_std defaults to 0

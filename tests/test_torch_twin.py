@@ -160,7 +160,8 @@ def test_fleet_scores_break_ties_like_lax_top_k():
     jp.resident[[11, 13]] = True
     kw = dict(min_samples=8, sw=1.0, dw=4.0, k=8)
     rows_j, prio_j, nw_j, pr_j = jax_fleet_scores(jp, **kw)
-    rows_t, prio_t, nw_t, pr_t = fleet_scores(_port_packed(jp), **kw)
+    rows_t, prio_t, nw_t, pr_t = fleet_scores(_port_packed(jp), **kw,
+                                              device="cpu")
     np.testing.assert_array_equal(rows_t, np.asarray(rows_j))
     np.testing.assert_array_equal(prio_t, np.asarray(prio_j))
     assert rows_t.tolist() == [10, 12, 14, 15, 16, 17, 18, 19]
@@ -175,7 +176,7 @@ def test_packed_planner_matches_jax_on_random_fleets():
         slot_rows = jp.slot_rows_from_records(twins, cfg["slots"])
         want = JaxPlanner(JaxSchedCfg(**cfg)).plan(jp, slot_rows,
                                                    max_active=max_active)
-        got = PackedRefitScheduler(SchedulerConfig(**cfg)).plan(
+        got = PackedRefitScheduler(SchedulerConfig(**cfg), device="cpu").plan(
             _port_packed(jp), slot_rows, max_active=max_active)
         assert (got.admit, got.evict, got.release) == \
             (want.admit, want.evict, want.release)
