@@ -9,7 +9,9 @@ each of which raises on failure (the script then exits nonzero):
              source, all started together);
   2. check   each kernel against its plain PyTorch version at the serving
              paths' shapes (plus a ragged batch, RK4 with m == 0, GRU with
-             shared and per-slot weights, forward and gradients; the linear
+             shared and per-slot weights, at H = 16, 48, 64, 96, 100, 128,
+             136, T = 1, 50, B = 1 and the offline fleet's shape, forward
+             and gradients; the linear
              scan in both modes, bf16 and f32, with and without the bonus,
              ragged, short, carried and wide);
   3. serve   64 F-8 twins at the repo's own serving width
@@ -24,10 +26,12 @@ each of which raises on failure (the script then exits nonzero):
              then one more prefill and 4 decode steps under torch.profiler;
   6. LM parity  the same architecture at 2 layers in f32, card against CPU:
              prefill and 16 decode steps' logits, greedy tokens;
-  7. time    each kernel and its plain version at every serving shape (RK4:
-             refit, guard, promote, predict, scenario, a fleet of 2048; the
-             scan: prompts of 256-4096 tokens, 4 prompts of 2048), and the
-             scan's three launches apart.
+  7. time    each kernel and its plain version at every serving shape (GRU:
+             the online tick's refit, the offline fleet's and the F-8
+             training width's; RK4: refit,
+             guard, promote, predict, scenario, a fleet of 2048; the scan:
+             prompts of 256-4096 tokens, 4 prompts of 2048), and the scan's
+             three launches apart.
 
 Kernel launch counts are set to 0 just before each serving path (tick,
 predict, scenario, LM prefill, LM decode) and read just after it.
@@ -156,11 +160,11 @@ def serve(device, ys, us, ticks: int):
 # --------------------------------------------------------------------------- #
 # kernel checks and timing
 # --------------------------------------------------------------------------- #
-def _gru_inputs(gen, dev, lead, fleet):
-    D, H = 4, 32
+def _gru_inputs(gen, dev, lead, fleet, T=24, H=32):
+    D = 4
     wl = (fleet,) if fleet else ()
     rand = lambda *s: torch.rand(s, generator=gen) * 2 - 1
-    return [(rand(*lead, 24, D)).to(dev),
+    return [(rand(*lead, T, D)).to(dev),
             (0.1 * rand(*lead, H)).to(dev),
             (rand(*wl, D, 3 * H) / D ** 0.5).to(dev),
             (rand(*wl, H, 3 * H) / H ** 0.5).to(dev),
@@ -204,11 +208,23 @@ def check_kernels(dev):
     from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
     gen = torch.Generator().manual_seed(1)
     worst = {"gru_scan": 0.0, "rk4_poly": 0.0}
-    gru_cases = [("refit F=8 B=8", (8, 8), 8),
-                 ("ragged F=8 B=61", (8, 61), 8),
-                 ("shared weights [2, 61]", (2, 61), None)]
-    for label, lead, fleet in gru_cases:
-        args = _gru_inputs(gen, dev, lead, fleet)
+    gru_cases = [("refit F=8 B=8", (8, 8), 8, 24, 32),
+                 ("ragged F=8 B=61", (8, 61), 8, 24, 32),
+                 ("shared weights [2, 61]", (2, 61), None, 24, 32),
+                 ("H=16 F=8 B=8", (8, 8), 8, 24, 16),
+                 ("H=48 F=8 B=13", (8, 13), 8, 24, 48),
+                 ("H=64 F=8 B=8", (8, 8), 8, 24, 64),
+                 ("H=96 F=2 B=5", (2, 5), 2, 24, 96),
+                 ("H=128 F=2 B=5", (2, 5), 2, 24, 128),
+                 ("H=136 F=2 B=5", (2, 5), 2, 24, 136),
+                 ("T=1 F=8 B=8", (8, 8), 8, 1, 32),
+                 ("B=1 F=8", (8, 1), 8, 24, 32),
+                 ("fleet F=16 B=32 H=64", (16, 32), 16, 24, 64),
+                 ("H=100 F=2 B=5", (2, 5), 2, 24, 100),
+                 ("T=50 F=8 B=8", (8, 8), 8, 50, 32),
+                 ("T=50 H=100 F=2 B=5", (2, 5), 2, 50, 100)]
+    for label, lead, fleet, T, H in gru_cases:
+        args = _gru_inputs(gen, dev, lead, fleet, T, H)
         outs, grads = _grads(gru_scan, args)
         ref_outs, ref_grads = _grads(gru_scan_ref, args)
         torch.cuda.synchronize()
@@ -407,6 +423,17 @@ def _scan_work(B, H, T, K, V, C, rwkv6: bool, exact_v: bool):
                  + 3 * c * K * V * 2                         # q_read @ S
                  + nv * c * K * V * 2)                       # kd^T v
     return B * H * f32, B * H * tf32
+# the GRU's served shapes, (F, B, T, H) with D = 4: the online tick's refit
+# encoder (examples/online_twinning.py; the first, main shape keeps its
+# label), the offline fleet's at the JAX package's default width
+# (examples/fleet_twinning.py) and F-8 training's batch of 64 windows at
+# hidden 96 (examples/train_f8_crusader.py), the one width above 64 the
+# repo runs
+GRU_SHAPES = {
+    "F=8 B=8 T=24 D=4 H=32": (8, 8, 24, 32),
+    "fleet F=16 B=32 T=24 D=4 H=64": (16, 32, 24, 64),
+    "train F=1 B=64 T=24 D=4 H=96": (1, 64, 24, 96),
+}
 RK4_SHAPES = {             # the serving paths' calls: (lead, T)
     "refit B=64 T=24": ((64,), 24),
     "guard B=64 T=32": ((64,), 32),
@@ -447,7 +474,9 @@ def _by_shape(line, timings, main):
 def kernel_lines(dev, paths, worst):
     """One entry per kernel.  `ms`, `plain_ms` and `bound_ms` are at the main
     serving shape -- the GRU at the refit encoder (F=8 slots x B=8 windows,
-    T=24, D=4, H=32), RK4 at the refit decoder (B=64, T=24, n=3, L=35, O=3,
+    T=24, D=4, H=32; also timed at the offline fleet's F=16 x B=32, H=64,
+    and at F-8 training's 64 windows, H=96),
+    RK4 at the refit decoder (B=64, T=24, n=3, L=35, O=3,
     m=1), the linear scan at the RWKV-6 prefill (B=1, H=40, T=2048,
     K=V=64, C=64, bf16 q/k/v) -- and `*_by_shape` hold every serving shape
     timed.  None has a single PyTorch call computing the same function
@@ -467,16 +496,18 @@ def kernel_lines(dev, paths, worst):
         max_abs_err=worst[name])
     lines = []
     with torch.no_grad():
-        args = _gru_inputs(gen, dev, (8, 8), 8)
-        (F, B, T, D), H = args[0].shape, args[1].shape[-1]
-        outs = gru_scan(*args)
-        # products only (2 per multiply-add): x Wx, h Wh_zr, (r*h) Wh_c
-        flops = 2.0 * F * B * T * (D * 3 * H + 3 * H * H)
-        nbytes = sum(t.nbytes for t in (*args, *outs))
-        main = f"F={F} B={B} T={T} D={D} H={H}"
-        timings = {main: _timed(lambda: gru_scan(*args),
-                                lambda: gru_scan_ref(*args), flops, nbytes,
-                                eager=True)}
+        timings = {}
+        main = next(iter(GRU_SHAPES))
+        for label, (F, B, T, H) in GRU_SHAPES.items():
+            args = _gru_inputs(gen, dev, (F, B), F, T, H)
+            D = args[0].shape[-1]
+            outs = gru_scan(*args)
+            # products only (2 per multiply-add): x Wx, h Wh_zr, (r*h) Wh_c
+            flops = 2.0 * F * B * T * (D * 3 * H + 3 * H * H)
+            nbytes = sum(t.nbytes for t in (*args, *outs))
+            timings[label] = _timed(lambda a=args: gru_scan(*a),
+                                    lambda a=args: gru_scan_ref(*a), flops,
+                                    nbytes, eager=label == main)
         lines.append(_by_shape(dict(
             **common("gru_scan"), source="src/repro_torch/csrc/gru_scan.cu",
             replaces="src/repro/kernels/gru/gru.py:27"), timings, main))

@@ -51,7 +51,8 @@ class FleetMerinda:
         """Fresh fleet state.  `params` (stacked, leaves [F, ...]) is taken
         as given; otherwise each slot draws from `generator` in turn."""
         if params is None:
-            draws = [self.model.init(generator) for _ in range(self.cfg.fleet)]
+            draws = [self.model.init(generator, device="cpu")
+                     for _ in range(self.cfg.fleet)]
             params = tree_map(lambda *xs: torch.stack(xs), *draws)
         params = tree_map(lambda p: p.to(self.device, torch.float32), params)
         return {"params": params, "opt": self.opt.init(params),
@@ -123,7 +124,7 @@ class FleetMerinda:
         bias-correction step stays global.
         """
         if fresh is None:
-            fresh = self.model.init(generator)
+            fresh = self.model.init(generator, device="cpu")
         if y_win is not None:
             fresh = {**fresh, "norm": self.model.norm_stats(y_win, u_win)}
         for dst, src in zip(tree_leaves(state["params"]), tree_leaves(fresh)):

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.library import PolyLibrary, make_library
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.gru.ops import gru_scan
 from repro_torch.kernels.gru.ref import init_gru_params
 from repro_torch.kernels.rk4.ops import rk4_poly_solve
@@ -94,9 +95,11 @@ class Merinda:
         return {"mu": mu, "sigma": sigma, "phi_scale": phi_scale}
 
     def init(self, generator: torch.Generator | None = None, norm=None, *,
-             device="cpu"):
+             device=None):
         """Fresh params; random leaves come from `generator` on the CPU and
-        are then moved to `device`.  `norm` defaults to the identity."""
+        are then moved to `device` (None: the CUDA card, raising without
+        one).  `norm` defaults to the identity."""
+        device = resolve_device(device)
         cfg = self.cfg
         L = self.lib.size
         d_in = cfg.n + cfg.m

@@ -1,8 +1,8 @@
 // Fused GRU sequence scan for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/gru/gru.py::_gru_kernel
-// (launched by gru_scan_pallas).  Same math as kernels/gru/ref.py, gate
-// layout [z | r | c] along the last weight axis:
+// (line 27, launched by gru_scan_pallas).  Same math as kernels/gru/ref.py,
+// gate layout [z | r | c] along the last weight axis:
 //
 //   z = sigmoid(x Wx_z + b_z + h Wh_z)     r = sigmoid(x Wx_r + b_r + h Wh_r)
 //   c = tanh(x Wx_c + b_c + (r*h) Wh_c)     h = (1 - z) h + z c
@@ -11,140 +11,338 @@
 // b [F, 3H] -> hs [F, B, T, H], hT [F, B, H]; fp32 throughout.  F is the
 // fleet axis of per-slot weights (F = 1 for shared weights).
 //
-// Grid (F, ceil(B / bt)); block (H, bt): thread (j, i) owns hidden unit j of
-// sequence i of the tile.  The block copies its slot's Wx, Wh and b into
-// shared memory once and keeps them there for all T steps; h and r*h live in
-// shared memory, and the input projection x_t Wx + b is computed in the
-// kernel body each step (the TPU kernel hoists it into one MXU matmul; here
-// D is 4, so it is 3*D FMAs per thread per step).  Three barriers per step:
-// after staging x_t, between the z/r pass and the candidate pass (everyone
-// must see r*h), and before h is overwritten.  The ragged batch edge is
-// masked in the kernel: threads past B compute on zeros and store nothing.
+// What bounds it.  At the online tick's shape (F=8 slots x B=8 windows,
+// T=24, D=4, H=32) the work is 10.6 MFLOP against 0.35 MB moved: 0.16 us
+// of f32 operations at 67 TFLOP/s, 0.10 us of bytes at 3.35 TB/s.  At the
+// offline fleet's (F=16 x B=32, H=64) it is 321 MFLOP against 4.45 MB:
+// 4.8 us of operations, 1.3 us of bytes; at F-8 training's (F=1 x B=64,
+// H=96) 88 MFLOP, 1.3 us of operations.  Neither is the limit.  Each
+// sequence is a chain of T dependent steps, and a step is itself a short
+// chain: the z and r dot products over h, two sigmoids, the candidate's
+// dot product over r*h (which needs every unit's r), a tanh and the update.
+// So the floor is T x one step's latency, and a step's FMAs (3H^2 / 32W a
+// lane) are issued by the sequence's own W warps alone.
 //
-// Bound on this card, at the main-path shape (F=8 slots x B=8 windows, T=24,
-// D=4, H=32): about 10.6 MFLOP and 0.35 MB moved, so the roofline bound is
-// about 0.16 us (fp32 at 67 TFLOP/s; 0.10 us for the bytes at 3.35 TB/s).
-// Neither is the real limit: that is the chain of T=24 dependent steps, each
-// an H-long dot product read from shared memory plus three barriers.  The
-// kernel keeps every operand on chip across that chain, so device memory is
-// touched once per input and output.
-//
+// Design: one block per sequence, W = ceil(H/32) warps (1..5), lane j of
+// warp q owning hidden unit 32q + j, and everything that does not depend
+// on h kept off the chain.
+//   * Wh on chip.  H <= 64 (W <= 2): each lane keeps its three Wh columns
+//     (3H floats) in registers, loaded once.  64 < H (W = 3..5): Wh sits
+//     once in the block's shared memory, row-major as in global memory,
+//     staged by cp.async before the chain; lanes read consecutive columns
+//     of a row, so no bank conflicts.  The width this exists for is F-8
+//     training's hidden 96 (examples/train_f8_crusader.py:42).  Wh must
+//     fit the block's 227 KB, so H <= 136 at D = 4, the widths the
+//     block-per-slot design took (gru_scan_max_hidden(D)).
+//   * Prologue, per chunk of up to 32 steps: each warp stages the chunk's x
+//     [TC, D] in its shared memory and computes xp = x Wx + b for every
+//     step of the chunk (the TPU kernel's hoisted input projection) into a
+//     per-lane slice of shared memory; with D <= 4, Wx sits in registers
+//     too.  No global load and no input product remain inside the chain.
+//   * h and r*h are exchanged through two shared buffers, written one float
+//     a lane and read back as float4 broadcasts, with a barrier after each
+//     write: two a step, __syncwarp at W = 1, else __syncthreads (the
+//     block is the sequence).  Each dot product runs over four
+//     accumulators (k mod 4).
+//   * hs is stored coalesced, 128 bytes a warp a step, and nothing waits
+//     on the store.
+// Every register array is indexed by unrolled loops only, so no
+// instantiation has a stack frame.
 // Accuracy: fp32 FMA with expf/tanhf (no --use_fast_math), so the kernel
 // holds 1e-5 against the plain PyTorch version.
+//
+// Measured (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3, 700.00 W):
+// about 0.010 ms at the tick's shape, 0.018 ms at the fleet's and 0.034 ms
+// at F-8 training's, against about 0.034, 0.061 and 0.069 ms for the
+// block-per-slot design before it (a thread per unit, Wh in shared memory,
+// three block barriers a step).  Times in PERF.md.
 
 #include <cuda_runtime.h>
 
+#define GRU_MAX_W 5
+
 namespace {
 
+constexpr int kMaxChunk = 32;              // steps per prologue
+constexpr int kMaxSmemBytes = 227 * 1024;  // Hopper's opt-in limit a block
+
+// 1 / (1 + e^-x); __frcp_rn is the correctly rounded reciprocal, the same
+// value as the IEEE division 1.0f / y in fewer instructions.
 __device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+  return __frcp_rn(1.0f + expf(-x));
 }
 
-__global__ void gru_scan_kernel(const float* __restrict__ xs,
-                                const float* __restrict__ h0,
-                                const float* __restrict__ wx,
-                                const float* __restrict__ wh,
-                                const float* __restrict__ b,
-                                float* __restrict__ hs,
-                                float* __restrict__ hT,
-                                int B, int T, int D, int H) {
-  extern __shared__ float smem[];
-  const int H3 = 3 * H;
-  const int bt = blockDim.y;
-  float* s_wx = smem;                // [D, 3H]
-  float* s_wh = s_wx + D * H3;       // [H, 3H]
-  float* s_b = s_wh + H * H3;        // [3H]
-  float* s_h = s_b + H3;             // [bt, H]
-  float* s_rh = s_h + bt * H;        // [bt, H]
-  float* s_x = s_rh + bt * H;        // [bt, D]
+__device__ __forceinline__ float sum4(const float (&a)[4]) {
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
 
-  const int f = blockIdx.x;
-  const int j = threadIdx.x;
-  const int i = threadIdx.y;
-  const int seq = blockIdx.y * bt + i;
-  const bool valid = seq < B;
-  const int tid = i * H + j;
-  const int nthreads = bt * H;
+// Floats of x's rows in shared memory: D rounded up to a float4, at least
+// one.
+__host__ __device__ inline int x_pitch(int D) {
+  return D <= 4 ? 4 : (D + 3) & ~3;
+}
 
+// Rows of Wh in shared memory: H rounded up to a float4 of h, the rows
+// past H zero.
+__host__ __device__ inline int wh_rows(int H) { return (H + 3) & ~3; }
+
+// Floats of a block's shared memory: h and r*h [32 W] each, Wh
+// [wh_rows(H), 3H] when W > 2, and per warp xp [TC, 3, 32] and x [TC, XP].
+__host__ __device__ inline int smem_floats(int W, int TC, int D, int H) {
+  return 64 * W + (W > 2 ? wh_rows(H) * 3 * H : 0) +
+         W * TC * (96 + x_pitch(D));
+}
+
+// Steps a prologue: up to kMaxChunk, as many as fit a block's shared
+// memory; 0 if not one does.
+int chunk_steps(int T, int D, int H) {
+  const int W = (H + 31) / 32;
+  int TC = T < 1 ? 1 : (T < kMaxChunk ? T : kMaxChunk);
+  while (TC > 0 && smem_floats(W, TC, D, H) * 4 > kMaxSmemBytes) --TC;
+  return TC;
+}
+
+// The W warps of the block's sequence wait for each other's shared stores.
+template <int W>
+__device__ __forceinline__ void seq_sync() {
+  if constexpr (W == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+// acc[g][i] += sum over k = 4 k4 + i of v[k] Wh[k, (G0+g) H + the lane's
+// unit].  Registers (W <= 2): w[g][k] for k < 32 W.  Shared memory
+// (W > 2): s_wc points at the lane's unit in row 0, rows 3H apart, and
+// the rows past H are zero.
+template <int W, int G0, int NG, int NR>
+__device__ __forceinline__ void dot_pass(float (&acc)[NG][4], const float* v,
+                                         int H, const float (&w)[3][NR],
+                                         const float* s_wc) {
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  if constexpr (W <= 2) {
+#pragma unroll
+    for (int k4 = 0; k4 < 8 * W; ++k4) {
+      const float4 hv = v4[k4];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        acc[g][0] = fmaf(hv.x, w[G0 + g][4 * k4 + 0], acc[g][0]);
+        acc[g][1] = fmaf(hv.y, w[G0 + g][4 * k4 + 1], acc[g][1]);
+        acc[g][2] = fmaf(hv.z, w[G0 + g][4 * k4 + 2], acc[g][2]);
+        acc[g][3] = fmaf(hv.w, w[G0 + g][4 * k4 + 3], acc[g][3]);
+      }
+      // at W = 2, a fence every 16 values of v: hoisting all 64 loads
+      // would take 64 registers beside Wh's 192, and ptxas would spill
+      if (W == 2 && k4 % 4 == 3) __syncwarp();
+    }
+  } else {
+    const int H3 = 3 * H;
+#pragma unroll 4
+    for (int k4 = 0; k4 < wh_rows(H) / 4; ++k4) {
+      const float4 hv = v4[k4];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float* p = s_wc + 4 * k4 * H3 + (G0 + g) * H;
+        acc[g][0] = fmaf(hv.x, p[0], acc[g][0]);
+        acc[g][1] = fmaf(hv.y, p[H3], acc[g][1]);
+        acc[g][2] = fmaf(hv.z, p[2 * H3], acc[g][2]);
+        acc[g][3] = fmaf(hv.w, p[3 * H3], acc[g][3]);
+      }
+    }
+  }
+}
+
+// One block per sequence, W warps of one unit a lane; Wh in registers
+// (W <= 2) or in shared memory (W > 2).
+template <int W>
+__global__ void __launch_bounds__(32 * W, 1)
+gru_scan_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
+                const float* __restrict__ wx, const float* __restrict__ wh,
+                const float* __restrict__ b, float* __restrict__ hs,
+                float* __restrict__ hT, int B, int T, int D, int H, int TC) {
+  constexpr bool kRegs = W <= 2;       // Wh in registers
+  constexpr int kNR = kRegs ? 32 * W : 1;
+  extern __shared__ __align__(16) float smem[];
+  const int H3 = 3 * H, XP = x_pitch(D);
+  const int lane = threadIdx.x & 31;
+  const int q = threadIdx.x >> 5;      // the warp, 0..W-1
+  const size_t row = blockIdx.x;       // flat sequence index f * B + seq
+  const int f = blockIdx.x / B;
   const float* wx_f = wx + (size_t)f * D * H3;
   const float* wh_f = wh + (size_t)f * H * H3;
   const float* b_f = b + (size_t)f * H3;
-  for (int k = tid; k < D * H3; k += nthreads) s_wx[k] = wx_f[k];
-  for (int k = tid; k < H * H3; k += nthreads) s_wh[k] = wh_f[k];
-  for (int k = tid; k < H3; k += nthreads) s_b[k] = b_f[k];
 
-  const size_t row = (size_t)f * B + seq;     // flat sequence index
-  float h = valid ? h0[row * H + j] : 0.0f;
-  float* my_h = s_h + i * H;
-  float* my_rh = s_rh + i * H;
-  float* my_x = s_x + i * D;
-  my_h[j] = h;
+  float* s_h = smem;                                     // [32 W]
+  float* s_rh = s_h + 32 * W;                            // [32 W]
+  float* s_wh = s_rh + 32 * W;                           // [wh_rows(H), 3H]
+  float* s_xp = s_wh + (kRegs ? 0 : wh_rows(H) * H3) +
+                q * TC * (96 + XP);                      // [TC, 3, 32]
+  float* s_x = s_xp + TC * 96;                           // [TC, XP]
 
-  for (int t = 0; t < T; ++t) {
-    for (int d = j; d < D; d += H)
-      my_x[d] = valid ? xs[(row * T + t) * D + d] : 0.0f;
-    __syncthreads();
-
-    float xz = 0.0f, xr = 0.0f, xc = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float x = my_x[d];
-      const float* w = s_wx + d * H3;
-      xz = fmaf(x, w[j], xz);
-      xr = fmaf(x, w[H + j], xr);
-      xc = fmaf(x, w[2 * H + j], xc);
-    }
-    xz += s_b[j];
-    xr += s_b[H + j];
-    xc += s_b[2 * H + j];
-
-    float hz = 0.0f, hr = 0.0f;
-    for (int k = 0; k < H; ++k) {
-      const float hk = my_h[k];
-      const float* w = s_wh + k * H3;
-      hz = fmaf(hk, w[j], hz);
-      hr = fmaf(hk, w[H + j], hr);
-    }
-    const float z = sigmoid_f(xz + hz);
-    const float r = sigmoid_f(xr + hr);
-    my_rh[j] = r * h;
-    __syncthreads();
-
-    float hc = 0.0f;
-    for (int k = 0; k < H; ++k)
-      hc = fmaf(my_rh[k], s_wh[k * H3 + 2 * H + j], hc);
-    const float c = tanhf(xc + hc);
-    h = (1.0f - z) * h + z * c;
-    __syncthreads();             // every read of s_h / s_x for step t is done
-
-    my_h[j] = h;
-    if (valid) hs[(row * T + t) * H + j] = h;
+  if constexpr (!kRegs) {              // Wh, all copies in flight at once
+    for (int i = threadIdx.x; i < H * H3; i += 32 * W)
+      cp_async4(s_wh + i, wh_f + i);
+    for (int i = H * H3 + threadIdx.x; i < wh_rows(H) * H3; i += 32 * W)
+      s_wh[i] = 0.0f;
   }
-  if (valid) hT[row * H + j] = h;
+  const int j = 32 * q + lane;         // the lane's unit
+  const bool valid = j < H;
+  const int unit = valid ? j : H - 1;  // clamped, for loads
+  float h = valid ? h0[row * H + unit] : 0.0f;
+  s_h[j] = h;
+
+  float w[3][kNR];                     // registers: the lane's Wh columns
+  if constexpr (kRegs) {
+    const float* p = wh_f + unit;
+#pragma unroll
+    for (int k = 0; k < 32 * W; ++k) {
+      const bool ok = k < H;
+      w[0][k] = ok ? __ldg(p) : 0.0f;
+      w[1][k] = ok ? __ldg(p + H) : 0.0f;
+      w[2][k] = ok ? __ldg(p + 2 * H) : 0.0f;
+      if (k + 1 < H) p += H3;          // stay inside wh
+    }
+  } else {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  const float* s_wc = s_wh + unit;
+
+  const float* x_row = xs + row * T * D;
+  float* out = hs + row * T * H;
+  seq_sync<W>();
+
+  for (int t0 = 0; t0 < T; t0 += TC) {
+    const int n = min(TC, T - t0);
+    // prologue: the chunk's x (rows padded with zeros to XP), then xp = x
+    // Wx + b for each of its steps, for the lane's own unit (b and Wx's
+    // first four rows loaded here, so that they hold no register in the
+    // chain)
+    float bias[3], wxr[4][3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      bias[g] = __ldg(b_f + g * H + unit);
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        wxr[d][g] = d < D ? __ldg(wx_f + (size_t)d * H3 + g * H + unit)
+                          : 0.0f;
+    }
+    for (int t = lane; t < n; t += 32) {
+      const float* src = x_row + (size_t)(t0 + t) * D;
+      for (int d0 = 0; d0 < XP; d0 += 4) {
+        float4 v;
+        v.x = d0 < D ? __ldg(src + d0) : 0.0f;
+        v.y = d0 + 1 < D ? __ldg(src + d0 + 1) : 0.0f;
+        v.z = d0 + 2 < D ? __ldg(src + d0 + 2) : 0.0f;
+        v.w = d0 + 3 < D ? __ldg(src + d0 + 3) : 0.0f;
+        *reinterpret_cast<float4*>(s_x + t * XP + d0) = v;
+      }
+    }
+    __syncwarp();
+    if (D <= 4) {                      // the served case: Wx in registers
+#pragma unroll 4
+      for (int tt = 0; tt < n; ++tt) {
+        const float4 x0 = *reinterpret_cast<const float4*>(s_x + tt * 4);
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          s_xp[(tt * 3 + g) * 32 + lane] =
+              fmaf(x0.x, wxr[0][g],
+                   fmaf(x0.y, wxr[1][g],
+                        fmaf(x0.z, wxr[2][g],
+                             fmaf(x0.w, wxr[3][g], bias[g]))));
+      }
+    } else {                           // Wx read through L1
+      for (int tt = 0; tt < n; ++tt) {
+        const float* xt = s_x + tt * XP;
+        float a[3] = {bias[0], bias[1], bias[2]};
+        for (int d = 0; d < D; ++d) {
+          const float x = xt[d];
+          const float* wd = wx_f + (size_t)d * H3 + unit;
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            a[g] = fmaf(x, __ldg(wd + g * H), a[g]);
+        }
+#pragma unroll
+        for (int g = 0; g < 3; ++g) s_xp[(tt * 3 + g) * 32 + lane] = a[g];
+      }
+    }
+
+    // the chain: only h-dependent work from here to the chunk's end
+    for (int tt = 0; tt < n; ++tt, out += H) {
+      const float* xp = s_xp + tt * 96 + lane;
+      float zr[2][4] = {};
+      dot_pass<W, 0, 2>(zr, s_h, H, w, s_wc);
+      const float z = sigmoid_f(xp[0] + sum4(zr[0]));
+      const float r = sigmoid_f(xp[32] + sum4(zr[1]));
+      s_rh[j] = r * h;
+      seq_sync<W>();
+      float cc[1][4] = {};
+      dot_pass<W, 2, 1>(cc, s_rh, H, w, s_wc);
+      const float c = tanhf(xp[64] + sum4(cc[0]));
+      h = valid ? (1.0f - z) * h + z * c : 0.0f;
+      s_h[j] = h;
+      if (valid) out[unit] = h;
+      seq_sync<W>();
+    }
+  }
+  if (valid) hT[row * H + unit] = h;
+}
+
+typedef void (*GruKernel)(const float*, const float*, const float*,
+                          const float*, const float*, float*, float*, int,
+                          int, int, int, int);
+
+GruKernel pick(int W) {
+  switch (W) {
+    case 1: return gru_scan_kernel<1>;
+    case 2: return gru_scan_kernel<2>;
+    case 3: return gru_scan_kernel<3>;
+    case 4: return gru_scan_kernel<4>;
+    case 5: return gru_scan_kernel<5>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-extern "C" int gru_scan_smem_bytes(int D, int H, int bt) {
-  return (D * 3 * H + H * 3 * H + 3 * H + 2 * bt * H + bt * D) *
-         (int)sizeof(float);
+// The widest hidden size the kernel takes at input width D: W <= 5 warps,
+// and above H = 64 Wh and one step's prologue in a block's shared memory.
+extern "C" int gru_scan_max_hidden(int D) {
+  int H = 32 * GRU_MAX_W;
+  while (H > 0 && chunk_steps(1, D, H) < 1) --H;
+  return H;
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" int gru_scan_launch(const float* xs, const float* h0,
                                const float* wx, const float* wh,
                                const float* b, float* hs, float* hT,
-                               int F, int B, int T, int D, int H, int bt,
+                               int F, int B, int T, int D, int H,
                                void* stream) {
-  const int smem = gru_scan_smem_bytes(D, H, bt);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gru_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (F < 1 || B < 1 || T < 0 || D < 0 || H < 1 || H > 32 * GRU_MAX_W ||
+      (long)F * B > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  const int W = (H + 31) / 32;
+  const int TC = chunk_steps(T, D, H);
+  if (TC < 1) return (int)cudaErrorInvalidValue;
+  const int bytes = smem_floats(W, TC, D, H) * 4;
+  GruKernel kernel = pick(W);
+  static bool opted[GRU_MAX_W + 1] = {};   // one opt-in per instantiation
+  if (bytes > 48 * 1024 && !opted[W]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
     if (err != cudaSuccess) return (int)err;
+    opted[W] = true;
   }
-  dim3 grid(F, (B + bt - 1) / bt);
-  dim3 block(H, bt);
-  gru_scan_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      xs, h0, wx, wh, b, hs, hT, B, T, D, H);
+  kernel<<<F * B, 32 * W, bytes, (cudaStream_t)stream>>>(
+      xs, h0, wx, wh, b, hs, hT, B, T, D, H, TC);
   return (int)cudaGetLastError();
 }
 

@@ -130,10 +130,10 @@ def build_library(verbose: bool = False) -> Path:
 
 def _declare(lib) -> None:
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.gru_scan_launch.argtypes = [vp] * 7 + [i32] * 6 + [vp]
+    lib.gru_scan_launch.argtypes = [vp] * 7 + [i32] * 5 + [vp]
     lib.gru_scan_launch.restype = i32
-    lib.gru_scan_smem_bytes.argtypes = [i32] * 3
-    lib.gru_scan_smem_bytes.restype = i32
+    lib.gru_scan_max_hidden.argtypes = [i32]
+    lib.gru_scan_max_hidden.restype = i32
     lib.rk4_poly_launch.argtypes = [vp] * 5 + [i32] * 6 + [f64, vp]
     lib.rk4_poly_launch.restype = i32
     lib.rk4_poly_max_n.argtypes = []

@@ -6,15 +6,18 @@ Two weight forms:
   * shared: wx [Din, 3H], wh [H, 3H], b [3H] with xs [..., B, T, Din] and
     h0 [..., B, H]; extra leading axes fold into the batch axis;
   * fleet: per-slot weights wx [F, Din, 3H], wh [F, H, 3H], b [F, 3H] with
-    xs [F, B, T, Din], h0 [F, B, H] — one launch over a (slot, batch-tile)
-    grid.  JAX got this from `pallas_call`'s vmap rule (the refit path runs
-    the scan under `vmap` over slots); PyTorch has none, so the axis is
-    explicit here.
+    xs [F, B, T, Din], h0 [F, B, H] — one launch over every (slot,
+    sequence).  JAX got this from `pallas_call`'s vmap rule (the refit path
+    runs the scan under `vmap` over slots); PyTorch has none, so the axis
+    is explicit here.
 
 On a CUDA tensor the forward launches the kernel (`_GRUScanKernel`) and the
 backward replays the plain version under autograd — the JAX `custom_vjp`
 does the same, and the JAX package has no backward kernel to port.  The
-kernel masks its own ragged batch edge, so no padding happens here.
+kernel runs one block per sequence of ceil(H/32) warps, each lane owning
+one hidden unit: with its Wh columns in registers up to H = 64, above that
+with Wh in the block's shared memory, up to H =
+`lib.gru_scan_max_hidden(D)` (136 at D = 4).  No padding happens here.
 """
 from __future__ import annotations
 
@@ -27,13 +30,6 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.gru.ref import gru_scan_ref
 
 __all__ = ["gru_scan", "gru_scan_kernel"]
-
-_MAX_GRID_Y = 65535
-
-
-def _block_b(H: int, B: int) -> int:
-    """Sequences per block: about 128 threads, at least one sequence."""
-    return max(1, min(B, 128 // H)) if B else 1
 
 
 def gru_scan_kernel(xs, h0, wx, wh, b):
@@ -54,23 +50,18 @@ def gru_scan_kernel(xs, h0, wx, wh, b):
                             "expected float32")
         if not t.is_contiguous():
             raise ValueError(f"gru_scan kernel: {name} is not contiguous")
-    if H > 1024:
-        raise ValueError(f"gru_scan kernel: hidden {H} > 1024 threads")
     lib = backend.load_library()
-    bt = _block_b(H, B)
-    smem = lib.gru_scan_smem_bytes(D, H, bt)
-    if smem > backend.MAX_SMEM:
-        raise ValueError(f"gru_scan kernel: {smem} bytes of shared memory "
-                         f"(D={D}, H={H}) exceeds {backend.MAX_SMEM}")
-    if -(-B // bt) > _MAX_GRID_Y:
-        raise ValueError(f"gru_scan kernel: batch {B} exceeds the grid")
+    max_h = lib.gru_scan_max_hidden(D)
+    if H > max_h:
+        raise ValueError(f"gru_scan kernel: hidden {H} > {max_h} at input "
+                         f"width {D} (Wh must fit a block's shared memory)")
     hs = torch.empty((F, B, T, H), dtype=torch.float32, device=dev)
     hT = torch.empty((F, B, H), dtype=torch.float32, device=dev)
     if F == 0 or B == 0:
         return hs, h0.clone()
     err = lib.gru_scan_launch(
         xs.data_ptr(), h0.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-        b.data_ptr(), hs.data_ptr(), hT.data_ptr(), F, B, T, D, H, bt,
+        b.data_ptr(), hs.data_ptr(), hT.data_ptr(), F, B, T, D, H,
         ctypes.c_void_p(backend.cuda_stream(dev)))
     backend.check_cuda(lib, err, "gru_scan")
     gru_scan.launches += 1

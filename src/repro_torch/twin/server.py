@@ -138,7 +138,7 @@ class TorchInitSource:
         return self.fleet.init(self.generator)
 
     def slot_init(self):
-        return self.fleet.model.init(self.generator)
+        return self.fleet.model.init(self.generator, device="cpu")
 
 
 class TwinServer:

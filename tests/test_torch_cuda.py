@@ -6,7 +6,8 @@ nothing of JAX, so it also runs on a machine with PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes are the serving path's (GRU: 8 refit slots x B windows, T=24, D=4,
-H=32; RK4: n=3, order 3, T=24) with a full and a ragged batch, and RK4 at
+H=32, and H=16, 48, 64, 100, T=1, 50 (two prologue chunks), B=1, D=5;
+RK4: n=3, order 3, T=24) with a full and a ragged batch, and RK4 at
 one instance, a fleet of 2048, n = 1 without inputs, L past two term
 groups and orders above 4.  Tolerances: forward GRU 1e-5 absolute and RK4
 rtol 1e-4 / atol 1e-5 (fp32 sums in another order than the plain version);
@@ -53,17 +54,23 @@ def _grads(fn, args):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [8, 61])
+@pytest.mark.parametrize("H", [16, 32, 48, 64, 100])
+@pytest.mark.parametrize("T", [1, 24, 50])
+@pytest.mark.parametrize("B", [1, 8, 61])
 @pytest.mark.parametrize("fleet", [8, None])
-def test_gru_kernel_matches_plain_version(cuda, B, fleet):
-    rng = np.random.default_rng(B)
-    D, H = 4, 32
+@pytest.mark.parametrize("D", [4, 5])
+def test_gru_kernel_matches_plain_version(cuda, H, T, B, fleet, D):
+    # the serving width's cases (H=32, T=24, D=4) keep their first seed;
+    # Wh's range 0.18 * sqrt(32 / H) keeps h's scale at every width
+    rng = np.random.default_rng(B if (H, T, D) == (32, 24, 4)
+                                else (B, H, T, D))
     wl = (fleet,) if fleet else ()
     lead = (fleet or 2, B)
-    arrays = (rng.normal(size=lead + (24, D)),
+    s = 0.18 * (32 / H) ** 0.5
+    arrays = (rng.normal(size=lead + (T, D)),
               0.1 * rng.normal(size=lead + (H,)),
               rng.uniform(-0.5, 0.5, wl + (D, 3 * H)),
-              rng.uniform(-0.18, 0.18, wl + (H, 3 * H)),
+              rng.uniform(-s, s, wl + (H, 3 * H)),
               0.1 * rng.normal(size=wl + (3 * H,)))
     args, ref_args = _on(cuda, *arrays), _on(cuda, *arrays)
     before = gru_scan.launches

@@ -55,7 +55,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core.fleet import FleetConfig, FleetMerinda
-    from repro_torch.core.merinda import MerindaConfig
+    from repro_torch.core.merinda import Merinda, MerindaConfig
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.twin.monitor import GuardConfig
     from repro_torch.twin.server import TwinServer, TwinServerConfig
@@ -72,6 +72,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Merinda(mcfg).init()
+    params = Merinda(mcfg).init(torch.Generator().manual_seed(0),
+                                device="cpu")
+    assert params["gru"]["wh"].device == torch.device("cpu")
 
     from repro_torch.configs import get_arch
     from repro_torch.models.zoo import build

@@ -76,14 +76,18 @@ def _torch_gru(inp):
 
 
 @pytest.mark.parametrize("backend", sorted(JAX_BACKENDS))
-@pytest.mark.parametrize("case", ["shared", "folded4d", "fleet"])
+@pytest.mark.parametrize("case", ["shared", "folded4d", "fleet",
+                                  "served_h32", "served_h64"])
 def test_gru_forward_and_grad_match_jax(backend, case):
     if case == "shared":
         inp, fleet = _gru_inputs(0, (6, 9), 5, 16), False
     elif case == "folded4d":            # shared weights, leading axes folded
         inp, fleet = _gru_inputs(1, (3, 5, 7), 4, 8), False
-    else:                               # per-slot weights on a fleet axis
+    elif case == "fleet":               # per-slot weights on a fleet axis
         inp, fleet = _gru_inputs(2, (3, 8, 12), 5, 16, fleet=3), True
+    else:       # the served widths: the online tick's H=32, the fleet's 64
+        H = 32 if case == "served_h32" else 64
+        inp, fleet = _gru_inputs(H, (2, 3, 24), 4, H, fleet=2), True
     hs_j, hT_j, g_j = _jax_gru(inp, fleet, JAX_BACKENDS[backend])
     hs_t, hT_t, g_t = _torch_gru(inp)
     assert hs_t.shape == hs_j.shape and hT_t.shape == hT_j.shape
