@@ -11,9 +11,11 @@ each of which raises on failure (the script then exits nonzero):
              paths' shapes (plus a ragged batch, RK4 with m == 0, GRU with
              shared and per-slot weights, at H = 16, 48, 64, 96, 100, 128,
              136, T = 1, 50, B = 1 and the offline fleet's shape, forward
-             and gradients; the linear
-             scan in both modes, bf16 and f32, with and without the bonus,
-             ragged, short, carried and wide);
+             and gradients; the offline paths' GRU at D = 2, 3 and F-8's
+             recover over 776 windows, RK4 at every registered system's
+             (n, m, order) and over one 6,000-step F-8 simulation; the
+             linear scan in both modes, bf16 and f32, with and without the
+             bonus, ragged, short, carried and wide);
   3. serve   64 F-8 twins at the repo's own serving width
              (examples/online_twinning.py), warm-started with the true
              theta, 12 airframes damaged mid-stream, 40 ticks of 8 samples
@@ -26,15 +28,26 @@ each of which raises on failure (the script then exits nonzero):
              then one more prefill and 4 decode steps under torch.profiler;
   6. LM parity  the same architecture at 2 layers in f32, card against CPU:
              prefill and 16 decode steps' logits, greedy tokens;
-  7. time    each kernel and its plain version at every serving shape (GRU:
-             the online tick's refit, the offline fleet's and the F-8
-             training width's; RK4: refit,
-             guard, promote, predict, scenario, a fleet of 2048; the scan:
+  7. offline model recovery: every registered system simulated on the card
+             and on the CPU from the same draws; Table I's quick protocol
+             (benchmarks/table1_accuracy.py) on F-8 and Lotka-Volterra:
+             MERINDA, EMILY and PINN+SR fit and scored; F-8 training at
+             hidden 96 (examples/train_f8_crusader.py), its polished
+             recovery and MSE, its first 10 steps replayed on the CPU; the
+             offline fleet of 16 twins (examples/fleet_twinning.py);
+  8. time    each kernel and its plain version at every serving and
+             offline shape (GRU: the online tick's refit, the offline
+             fleet's, F-8 training's and recovery's, Table I's
+             Lotka-Volterra; RK4: refit, guard, promote, predict, scenario,
+             a fleet of 2048, the F-8 and Lorenz simulations; the scan:
              prompts of 256-4096 tokens, 4 prompts of 2048), and the scan's
              three launches apart.
 
-Kernel launch counts are set to 0 just before each serving path (tick,
-predict, scenario, LM prefill, LM decode) and read just after it.
+Kernel launch counts are set to 0 just before each path (tick, predict,
+scenario, LM prefill, LM decode, and the offline ones: simulate, each Table
+I fit and its scoring, F-8 training and recovery, the fleet) and read just
+after it; a path that launches none of its kernels, or one it does not
+run, fails.
 
 The last three lines of output are the kernel JSON line, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.  Without a CUDA
@@ -80,7 +93,31 @@ OWN_KERNELS = ("gru_scan_kernel", "rk4_poly_kernel", "chunk_state_kernel",
                "state_scan_kernel", "chunk_output_kernel")
 PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
                 "scenario": ("rk4_poly",), "lm_prefill": ("linear_scan",),
-                "lm_decode": ()}
+                "lm_decode": (),
+                # offline recovery: simulation; Table I's fits (EMILY's and
+                # PINN+SR's run plain PyTorch only) and its scoring (MERINDA's
+                # recover encodes; every score integrates); F-8 training,
+                # its recovery, the offline fleet
+                "simulate": ("rk4_poly",),
+                "table1_merinda": ("gru_scan", "rk4_poly"),
+                "table1_emily": (), "table1_pinn_sr": (),
+                "table1_score": ("gru_scan", "rk4_poly"),
+                "train_f8": ("gru_scan", "rk4_poly"),
+                "f8_recover": ("gru_scan", "rk4_poly"),
+                "fleet_offline": ("gru_scan", "rk4_poly")}
+# the offline phase, cut to its budget (about 3 minutes on the card):
+# Table I's quick protocol (benchmarks/table1_accuracy.py: 400 steps, two
+# seeds, four systems) at 200 steps, one seed, F-8 and Lotka-Volterra;
+# F-8 training (examples/train_f8_crusader.py: 400 steps) at 200; the
+# offline fleet (examples/fleet_twinning.py) uncut
+TABLE1_SYSTEMS, TABLE1_STEPS = ("f8_crusader", "lotka_volterra"), 200
+F8_STEPS, F8_PARITY_STEPS, FLEET_STEPS = 200, 10, 60
+# card against CPU, whole simulations: each trace within this share of its
+# envelope.  Lorenz is chaotic (largest Lyapunov exponent about 0.9/s): over
+# its 4-s horizon rounding differences grow about e^3.6 = 37-fold, and
+# float32 against float64 on the CPU already differ by 3e-4 of the envelope
+SIM_REL = {"lorenz": 1e-2}
+SIM_REL_DEFAULT = 1e-4
 
 
 def _server_config():
@@ -97,14 +134,30 @@ def _server_config():
 
 
 def _systems():
-    """Nominal and elevator-damaged F-8, confined to the trim neighbourhood
-    as examples/online_twinning.py does (half the y0 range, inputs 0.03)."""
-    from repro_torch.systems.f8_crusader import F8Crusader
-    base = F8Crusader()
-    nominal = dataclasses.replace(
-        base, y0_low=tuple(0.5 * v for v in base.y0_low),
-        y0_high=tuple(0.5 * v for v in base.y0_high), input_scale=0.03)
-    return nominal, dataclasses.replace(nominal, elevator_effectiveness=0.25)
+    """Nominal and elevator-damaged F-8 (`DamagedF8`, as in
+    examples/online_twinning.py), confined to the trim neighbourhood as
+    that example does (half the y0 range, inputs 0.03)."""
+    from repro_torch.systems.f8_crusader import F8Crusader, f8_rows
+
+    class DamagedF8(F8Crusader):
+        """Partial elevator loss: every input-dependent coefficient scaled
+        by `effectiveness`."""
+
+        def __init__(self, effectiveness: float = 0.25):
+            super().__init__()
+            self.effectiveness = effectiveness
+
+        def rows(self):
+            return [{k: (v * self.effectiveness if "u0" in k else v)
+                     for k, v in row.items()} for row in f8_rows()]
+
+    def trim(system):
+        spec = system.spec
+        system.spec = dataclasses.replace(
+            spec, y0_low=tuple(0.5 * v for v in spec.y0_low),
+            y0_high=tuple(0.5 * v for v in spec.y0_high), input_scale=0.03)
+        return system
+    return trim(F8Crusader()), trim(DamagedF8())
 
 
 def telemetry(device, seed: int = 0):
@@ -112,23 +165,22 @@ def telemetry(device, seed: int = 0):
     us [..., 1]:
     all airframes nominal until DAMAGE_TICK, then the first DAMAGED lose
     three quarters of their elevator authority."""
-    from repro_torch.systems.f8_crusader import simulate, sum_of_sines
+    from repro_torch.systems.simulate import simulate_batch, simulate_from
     nominal, damaged = _systems()
     gen = torch.Generator().manual_seed(seed)
     pre = HISTORY + DAMAGE_TICK * CHUNK
     post = (TICKS + PROFILE_TICKS - DAMAGE_TICK) * CHUNK
-    ys1, noisy1, us1 = simulate(nominal, gen, batch=TWINS, horizon=pre,
-                                noise_std=0.002, device=device)
-    us2 = sum_of_sines(gen, TWINS, post, 1, nominal.dt, nominal.input_scale)
-    _, noisy2, _ = simulate(nominal, gen, batch=TWINS, horizon=post,
-                            noise_std=0.002, y0=ys1[:, -1], us=us2,
-                            device=device)
-    _, noisy_d, _ = simulate(damaged, gen, batch=DAMAGED, horizon=post,
-                             noise_std=0.002, y0=ys1[:DAMAGED, -1],
-                             us=us2[:DAMAGED], device=device)
-    noisy2[:DAMAGED] = noisy_d
-    ys = torch.cat([noisy1[:, :-1], noisy2], dim=1).cpu().numpy()
-    us = torch.cat([us1.cpu(), us2], dim=1).numpy()
+    tr1 = simulate_batch(nominal, gen, TWINS, horizon=pre, noise_std=0.002,
+                         device=device)
+    us2 = nominal.sample_inputs(gen, post, (TWINS,)).movedim(0, 1)
+    tr2 = simulate_from(nominal, tr1.ys[:, -1], us2, noise_std=0.002,
+                        generator=gen, device=device)
+    trd = simulate_from(damaged, tr1.ys[:DAMAGED, -1], us2[:DAMAGED],
+                        noise_std=0.002, generator=gen, device=device)
+    noisy2 = tr2.ys_noisy.clone()
+    noisy2[:DAMAGED] = trd.ys_noisy
+    ys = torch.cat([tr1.ys_noisy[:, :-1], noisy2], dim=1).cpu().numpy()
+    us = torch.cat([tr1.us.cpu(), us2], dim=1).numpy()
     return ys, us
 
 
@@ -160,8 +212,7 @@ def serve(device, ys, us, ticks: int):
 # --------------------------------------------------------------------------- #
 # kernel checks and timing
 # --------------------------------------------------------------------------- #
-def _gru_inputs(gen, dev, lead, fleet, T=24, H=32):
-    D = 4
+def _gru_inputs(gen, dev, lead, fleet, T=24, H=32, D=4):
     wl = (fleet,) if fleet else ()
     rand = lambda *s: torch.rand(s, generator=gen) * 2 - 1
     return [(rand(*lead, T, D)).to(dev),
@@ -186,12 +237,55 @@ def _rk4_inputs(gen, dev, lead, T, m):
     return lib, [t.to(dev) for t in (theta, y0, us)]
 
 
+def _system_rk4_inputs(name, gen, dev, B, T, substeps=1):
+    """A registered system's own library and coefficients, each instance's
+    perturbed by 5% (plus 0.01 on every term), y0 and inputs drawn from
+    its spec; the inputs repeated `substeps` times for a simulation's fine
+    grid.  Returns (lib, dt, [theta, y0, us])."""
+    from repro_torch.systems.simulate import register_systems
+    system = register_systems()[name]()
+    lib = system.library()
+    true = torch.as_tensor(system.true_theta(lib), dtype=torch.float32)
+    theta = (true * (1 + 0.05 * torch.randn((B,) + true.shape,
+                                            generator=gen))
+             + 0.01 * torch.randn((B,) + true.shape, generator=gen))
+    y0 = system.sample_y0(gen, (B,))
+    us = system.sample_inputs(gen, T, (B,)).movedim(0, 1)
+    us = us.repeat_interleave(substeps, dim=1).contiguous()
+    return lib, system.spec.dt / substeps, [t.to(dev) for t in (theta, y0,
+                                                                us)]
+
+
 def _grads(fn, args):
     args = [a.detach().clone().requires_grad_() for a in args]
     outs = fn(*args)
     outs = outs if isinstance(outs, tuple) else (outs,)
     sum(torch.sum(o * o) for o in outs).backward()
     return [o.detach() for o in outs], [a.grad for a in args]
+
+
+def _close_traces(name, got, want, rel):
+    """Trajectories [B, T+1, n]: a trace the plain version lets diverge
+    (a non-finite value) must diverge on the card too; every finite one is
+    held within `rel` times its envelope (max |y|).  Returns the worst
+    absolute error over the finite traces."""
+    bad_got = ~torch.isfinite(got).flatten(1).all(dim=1)
+    bad_want = ~torch.isfinite(want).flatten(1).all(dim=1)
+    if not torch.equal(bad_got.cpu(), bad_want.cpu()):
+        raise RuntimeError(f"{name}: traces diverged on the card "
+                           f"{bad_got.tolist()}, on the plain version "
+                           f"{bad_want.tolist()}")
+    ok = ~bad_want
+    if not ok.any():
+        return 0.0
+    g, w = got[ok].double(), want[ok].double()
+    err = (g - w).abs().flatten(1).max(dim=1).values
+    limit = rel * w.abs().flatten(1).max(dim=1).values
+    if (err > limit).any():
+        raise RuntimeError(f"{name}: max |card - plain| per trace "
+                           f"{err.tolist()} above {rel} of the envelope "
+                           f"{limit.tolist()}")
+    return float(err.max())
 
 
 def _close(name, got, want, tol):
@@ -222,9 +316,14 @@ def check_kernels(dev):
                  ("fleet F=16 B=32 H=64", (16, 32), 16, 24, 64),
                  ("H=100 F=2 B=5", (2, 5), 2, 24, 100),
                  ("T=50 F=8 B=8", (8, 8), 8, 50, 32),
-                 ("T=50 H=100 F=2 B=5", (2, 5), 2, 50, 100)]
-    for label, lead, fleet, T, H in gru_cases:
-        args = _gru_inputs(gen, dev, lead, fleet, T, H)
+                 ("T=50 H=100 F=2 B=5", (2, 5), 2, 50, 100),
+                 # offline recovery: Table I's m = 0 systems (D = n = 2, 3)
+                 # at hidden 64, and F-8's recover over all 776 windows
+                 ("D=2 H=64 shared B=64", (64,), None, 24, 64, 2),
+                 ("D=3 H=64 shared B=64", (64,), None, 24, 64, 3),
+                 ("recover H=96 shared B=776", (776,), None, 24, 96, 4)]
+    for label, lead, fleet, T, H, *D in gru_cases:
+        args = _gru_inputs(gen, dev, lead, fleet, T, H, *D)
         outs, grads = _grads(gru_scan, args)
         ref_outs, ref_grads = _grads(gru_scan_ref, args)
         torch.cuda.synchronize()
@@ -256,8 +355,46 @@ def check_kernels(dev):
         _close(f"rk4 {label} grads", grads, ref_grads, GRAD_TOL)
         worst["rk4_poly"] = max(worst["rk4_poly"], err)
         print(f"  rk4_poly   {label:24s} max|err| {err:.3e}")
+    worst["rk4_poly"] = max(worst["rk4_poly"], check_rk4_systems(dev))
     worst["linear_scan"] = check_scan(dev)
     return worst
+
+
+def check_rk4_systems(dev) -> float:
+    """RK4 at every registered system's (n, m, order), m = 0 included (61
+    instances, 24 steps, forward and gradients), and at F-8's simulation
+    length: 4 traces of 600 samples x 10 substeps = 6,000 steps, forward
+    only, each trace within 1e-4 of its envelope (the bound rounding over
+    6,000 steps keeps; a trace the plain version lets diverge must diverge
+    on the card too)."""
+    from repro_torch.kernels.rk4.ops import rk4_poly_solve
+    from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
+    from repro_torch.systems.simulate import register_systems
+    gen = torch.Generator().manual_seed(4)
+    worst = 0.0
+    for name in sorted(register_systems()):
+        lib, dt, args = _system_rk4_inputs(name, gen, dev, 61, 24)
+        idx = lib.indices_on(dev)
+        outs, grads = _grads(
+            lambda *a: rk4_poly_solve(*a, dt=dt, library=lib), args)
+        ref_outs, ref_grads = _grads(
+            lambda *a: rk4_poly_solve_ref(*a, dt, idx), args)
+        torch.cuda.synchronize()
+        label = f"{name} n={lib.n} m={lib.m} O={lib.order}"
+        err = _close(f"rk4 {label}", outs, ref_outs, RK4_TOL)
+        _close(f"rk4 {label} grads", grads, ref_grads, GRAD_TOL)
+        worst = max(worst, err)
+        print(f"  rk4_poly   {label:40s} max|err| {err:.3e}")
+    lib, dt, args = _system_rk4_inputs("f8_crusader", gen, dev, 4, 600,
+                                       substeps=10)
+    with torch.no_grad():
+        ys = rk4_poly_solve(*args, dt=dt, library=lib)
+        ref = rk4_poly_solve_ref(*args, dt, lib.indices_on(dev))
+    torch.cuda.synchronize()
+    err = _close_traces("rk4 f8 simulation T=6000", ys, ref, 1e-4)
+    print(f"  rk4_poly   {'f8 simulation B=4 T=6000':40s} max|err| "
+          f"{err:.3e}")
+    return max(worst, err)
 
 
 def _scan_inputs(gen, dev, B, H, T, dtype, strong=False):
@@ -423,16 +560,19 @@ def _scan_work(B, H, T, K, V, C, rwkv6: bool, exact_v: bool):
                  + 3 * c * K * V * 2                         # q_read @ S
                  + nv * c * K * V * 2)                       # kd^T v
     return B * H * f32, B * H * tf32
-# the GRU's served shapes, (F, B, T, H) with D = 4: the online tick's refit
-# encoder (examples/online_twinning.py; the first, main shape keeps its
-# label), the offline fleet's at the JAX package's default width
-# (examples/fleet_twinning.py) and F-8 training's batch of 64 windows at
+# the GRU's shapes, (F, B, T, H, D): the online tick's refit encoder
+# (examples/online_twinning.py; the first, main shape keeps its label), the
+# offline fleet's at the JAX package's default width
+# (examples/fleet_twinning.py), F-8 training's batch of 64 windows at
 # hidden 96 (examples/train_f8_crusader.py), the one width above 64 the
-# repo runs
+# repo runs, that model's recover over all 776 windows, and Table I's
+# Lotka-Volterra encoder (benchmarks/table1_accuracy.py: D = n = 2)
 GRU_SHAPES = {
-    "F=8 B=8 T=24 D=4 H=32": (8, 8, 24, 32),
-    "fleet F=16 B=32 T=24 D=4 H=64": (16, 32, 24, 64),
-    "train F=1 B=64 T=24 D=4 H=96": (1, 64, 24, 96),
+    "F=8 B=8 T=24 D=4 H=32": (8, 8, 24, 32, 4),
+    "fleet F=16 B=32 T=24 D=4 H=64": (16, 32, 24, 64, 4),
+    "train F=1 B=64 T=24 D=4 H=96": (1, 64, 24, 96, 4),
+    "recover F=1 B=776 T=24 D=4 H=96": (1, 776, 24, 96, 4),
+    "lotka_volterra F=1 B=64 T=24 D=2 H=64": (1, 64, 24, 64, 2),
 }
 RK4_SHAPES = {             # the serving paths' calls: (lead, T)
     "refit B=64 T=24": ((64,), 24),
@@ -441,6 +581,12 @@ RK4_SHAPES = {             # the serving paths' calls: (lead, T)
     "predict B=1 T=50": ((1,), 50),
     "scenario [4, 8] T=50": ((4, 8), 50),
     "fleet B=2048 T=32": ((2048,), 32),
+}
+# simulations (systems/simulate.py): (system, traces), one launch over the
+# default horizon at 10 substeps a sample
+RK4_SIM_SHAPES = {
+    "f8 simulate B=4 T=6000": ("f8_crusader", 4),
+    "lorenz simulate B=4 T=8000 m=0": ("lorenz", 4),
 }
 SCAN_SHAPES = {            # (B, H, T): RWKV-6 prefills of one or 4 prompts
     "T=256": (1, 40, 256), "T=659": (1, 40, 659), "T=1024": (1, 40, 1024),
@@ -488,6 +634,7 @@ def kernel_lines(dev, paths, worst):
     from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
     from repro_torch.kernels.rk4.ops import rk4_poly_solve
     from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
+    from repro_torch.systems.simulate import register_systems
     gen = torch.Generator().manual_seed(2)
     common = lambda name: dict(
         name=name, route="cuda", library_ms=None,
@@ -498,9 +645,8 @@ def kernel_lines(dev, paths, worst):
     with torch.no_grad():
         timings = {}
         main = next(iter(GRU_SHAPES))
-        for label, (F, B, T, H) in GRU_SHAPES.items():
-            args = _gru_inputs(gen, dev, (F, B), F, T, H)
-            D = args[0].shape[-1]
+        for label, (F, B, T, H, D) in GRU_SHAPES.items():
+            args = _gru_inputs(gen, dev, (F, B), F, T, H, D)
             outs = gru_scan(*args)
             # products only (2 per multiply-add): x Wx, h Wh_zr, (r*h) Wh_c
             flops = 2.0 * F * B * T * (D * 3 * H + 3 * H * H)
@@ -513,21 +659,30 @@ def kernel_lines(dev, paths, worst):
             replaces="src/repro/kernels/gru/gru.py:27"), timings, main))
 
         timings = {}
-        for label, (lead, T) in RK4_SHAPES.items():
-            lib, (theta, y0, us) = _rk4_inputs(gen, dev, lead, T, 1)
+        cases = {label: (*_rk4_inputs(gen, dev, lead, T, 1), 0.01, lead)
+                 for label, (lead, T) in RK4_SHAPES.items()}
+        for label, (name, B) in RK4_SIM_SHAPES.items():
+            horizon = register_systems()[name]().spec.horizon
+            lib, dt, args = _system_rk4_inputs(name, gen, dev, B, horizon,
+                                               substeps=10)
+            cases[label] = (lib, args, dt, (B,))
+        for label, (lib, (theta, y0, us), dt, lead) in cases.items():
             idx = lib.indices_on(dev)
-            Bf, n, L, O = int(np.prod(lead)), 3, lib.size, idx.shape[1]
-            ys = rk4_poly_solve(theta, y0, us, dt=0.01, library=lib)
+            Bf, n, L, O = int(np.prod(lead)), lib.n, lib.size, idx.shape[1]
+            T = us.shape[-2]
+            ys = rk4_poly_solve(theta, y0, us, dt=dt, library=lib)
             # per right-hand side: (O-1) products per term for Phi, n*L FMAs
             flops = 4.0 * Bf * T * (L * (O - 1) + 2 * n * L)
             nbytes = sum(t.nbytes for t in (theta, y0, us, idx, ys))
             flat = [t.reshape((Bf,) + t.shape[len(lead):])
                     for t in (theta, y0, us)]
+            sim = label in RK4_SIM_SHAPES     # 6,000+ plain steps a call
             timings[label] = _timed(
-                lambda a=(theta, y0, us), lb=lib: rk4_poly_solve(
-                    *a, dt=0.01, library=lb),
-                lambda f=flat, ix=idx: rk4_poly_solve_ref(*f, 0.01, ix),
-                flops, nbytes, eager=label == "refit B=64 T=24")
+                lambda a=(theta, y0, us), lb=lib, h=dt: rk4_poly_solve(
+                    *a, dt=h, library=lb),
+                lambda f=flat, ix=idx, h=dt: rk4_poly_solve_ref(*f, h, ix),
+                flops, nbytes, plain_reps=1 if sim else 20,
+                eager=label == "refit B=64 T=24")
         lines.append(_by_shape(dict(
             **common("rk4_poly"), source="src/repro_torch/csrc/rk4_poly.cu",
             replaces="src/repro/kernels/rk4/rk4.py:38"), timings,
@@ -570,7 +725,10 @@ def scan_launches(fn, calls: int = 10):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # CPU activity too: after earlier profiler sessions a CUDA-only one
+    # recorded no device events
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -607,6 +765,11 @@ def counted(paths: dict, path: str, fn, quiet: bool = False):
         if total[name] == 0:
             raise RuntimeError(f"{name} was never launched on the {path} "
                                "path")
+    stray = {k: v for k, v in total.items()
+             if v and k not in PATH_KERNELS[path]}
+    if stray:
+        raise RuntimeError(f"the {path} path launched {stray}; it runs "
+                           f"only {PATH_KERNELS[path] or 'no kernel'}")
     return out
 
 
@@ -748,9 +911,6 @@ def serve_lm(paths: dict):
         raise RuntimeError(f"lm_prefill launched linear_scan "
                            f"{paths['lm_prefill']['linear_scan']} times, "
                            f"expected {cfg.n_layers} x {admitted} = {want}")
-    if any(paths["lm_decode"].values()):
-        raise RuntimeError(f"lm_decode launched kernels: "
-                           f"{paths['lm_decode']}")
     if sorted(r.rid for r in done) != list(range(LM_REQUESTS)):
         raise RuntimeError(f"finished {sorted(r.rid for r in done)}")
     for r in done:
@@ -870,6 +1030,246 @@ def profile_ticks(srv, ys, us):
 
 
 # --------------------------------------------------------------------------- #
+# offline model recovery
+# --------------------------------------------------------------------------- #
+def _finite_traces(system, seed, batch, dev, horizon=None, noise_std=0.0):
+    """simulate_batch from seed, seed + 1000, ... until every trace is
+    finite: F-8's open-loop cubic terms diverge from some initial states
+    (benchmarks/table1_accuracy.py resamples the same way)."""
+    from repro_torch.systems.simulate import simulate_batch
+    for attempt in range(10):
+        gen = torch.Generator().manual_seed(seed + 1000 * attempt)
+        tr = simulate_batch(system, gen, batch, horizon=horizon,
+                            noise_std=noise_std, device=dev)
+        if bool(torch.isfinite(tr.ys).all()):
+            return tr, gen
+    raise RuntimeError(f"{system.spec.name}: no finite traces in 10 draws")
+
+
+def simulate_systems(dev, paths):
+    """Every registered system: 4 traces of its default horizon at 10 RK4
+    substeps a sample, on the card (counted) and on the CPU from the same
+    y0 and inputs."""
+    from repro_torch.systems.simulate import register_systems, simulate_from
+    for i, (name, cls) in enumerate(sorted(register_systems().items())):
+        system = cls()
+        gen = torch.Generator().manual_seed(20 + i)
+        y0 = system.sample_y0(gen, (4,))
+        us = system.sample_inputs(gen, system.spec.horizon,
+                                  (4,)).movedim(0, 1)
+        t0 = time.perf_counter()
+        card = counted(paths, "simulate",
+                       lambda: simulate_from(system, y0, us, device=dev),
+                       quiet=True)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cpu = simulate_from(system, y0, us, device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        rel = SIM_REL.get(name, SIM_REL_DEFAULT)
+        err = _close_traces(f"simulate {name}", card.ys.cpu(), cpu.ys, rel)
+        bad = int((~torch.isfinite(cpu.ys).flatten(1).all(dim=1)).sum())
+        print(f"  {name:18s} {tuple(card.ys.shape)} card {card_ms:8.2f} ms, "
+              f"CPU {cpu_ms:8.2f} ms, max|card - CPU| {err:.3e} (limit "
+              f"{rel} of the envelope), diverged traces {bad}")
+    print(f"kernel launches on the simulate path: {paths['simulate']}")
+
+
+def _timed_path(paths, path, steps, fn):
+    """Run `fn` as a counted path; returns (result, ms per step, this
+    run's launches per step)."""
+    before = dict(paths.get(path, {}))
+    t0 = time.perf_counter()
+    out = counted(paths, path, fn)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    per = {k: (v - before.get(k, 0)) / steps
+           for k, v in paths[path].items() if v - before.get(k, 0)}
+    return out, ms, per
+
+
+def table1(dev, paths):
+    """Table I's quick protocol (benchmarks/table1_accuracy.py: 4 traces of
+    250 samples, noise 0.01, windows of 24 at stride 8, hidden 64, one
+    seed): MERINDA, EMILY and PINN+SR fit TABLE1_STEPS steps each, then
+    all three are scored by the clamped reconstruction MSE."""
+    from repro_torch.core.emily import Emily, EmilyConfig
+    from repro_torch.core.merinda import Merinda, MerindaConfig
+    from repro_torch.core.metrics import reconstruction_mse
+    from repro_torch.core.pinn_sr import PinnSR, PinnSRConfig
+    from repro_torch.core.trainer import fit
+    from repro_torch.data.pipeline import WindowDataset
+    from repro_torch.systems.simulate import register_systems
+    steps = TABLE1_STEPS
+    rows = {}
+    for name in TABLE1_SYSTEMS:
+        system = register_systems()[name]()
+        spec = system.spec
+        tr, gen = _finite_traces(system, 0, 4, dev, horizon=250,
+                                 noise_std=0.01)
+        ds = WindowDataset.from_trace(tr.ys_noisy, tr.us, tr.dt, window=24,
+                                      stride=8)
+        mer = Merinda(MerindaConfig(
+            n=spec.n, m=spec.m, order=spec.order, dt=spec.dt, hidden=64,
+            n_active=int((np.abs(system.true_theta()) > 0).sum())))
+        p = mer.init(gen, mer.norm_stats(ds.y_win, ds.u_win), device=dev)
+        res_m, ms_m, per_m = _timed_path(paths, "table1_merinda", steps,
+                                         lambda: fit(mer, p, ds.batches(
+                                             gen, 64, epochs=100_000),
+                                             steps=steps, lr=3e-3))
+        em = Emily(EmilyConfig(n=spec.n, m=spec.m, order=spec.order,
+                               dt=spec.dt, hidden=64))
+        p = em.init(gen, device=dev)
+        res_e, ms_e, _ = _timed_path(paths, "table1_emily", steps,
+                                     lambda: fit(em, p, ds.batches(
+                                         gen, 64, epochs=100_000),
+                                         steps=steps, lr=3e-3))
+        pm = PinnSR(PinnSRConfig(n=spec.n, m=spec.m, order=spec.order,
+                                 dt=spec.dt, horizon=tr.ys.shape[1] - 1))
+        p = pm.init(gen, tr.ys[0], device=dev)
+        batch = (tr.ys_noisy[0], tr.us[0])
+        rounds = (int(steps * 0.6), int(steps * 0.8))   # the SR rounds
+        post = lambda step, q: pm.apply_threshold(q) if step in rounds else q
+        res_p, ms_p, _ = _timed_path(paths, "table1_pinn_sr", steps,
+                                     lambda: fit(pm, p, iter(lambda: batch,
+                                                             None),
+                                                 steps=steps, lr=2e-3,
+                                                 post_step=post))
+
+        def score():
+            thetas = {"merinda": mer.recover(res_m.params, ds.y_win,
+                                             ds.u_win),
+                      "emily": em.recover(res_e.params, ds.y_win, ds.u_win),
+                      "pinn_sr": pm.recover(res_p.params)}
+            return {k: reconstruction_mse(mer.lib, th, ds.y_win, ds.u_win,
+                                          spec.dt)
+                    for k, th in thetas.items()}
+        mse = counted(paths, "table1_score", score)
+        for method, res in (("merinda", res_m), ("emily", res_e),
+                            ("pinn_sr", res_p)):
+            if not np.isfinite(mse[method]) or not res.history:
+                raise RuntimeError(f"table1 {name} {method}: MSE "
+                                   f"{mse[method]}, {len(res.history)} "
+                                   "finite steps")
+        rows[name] = mse
+        print(f"  {name}: {ds.n_windows} windows; MSE merinda "
+              f"{mse['merinda']:.6g}, emily {mse['emily']:.6g}, pinn_sr "
+              f"{mse['pinn_sr']:.6g}; ms per step merinda {ms_m:.2f}, "
+              f"emily {ms_e:.2f}, pinn_sr {ms_p:.2f}; merinda launches per "
+              f"step {per_m}; nan restarts "
+              f"{res_m.nan_restarts}/{res_e.nan_restarts}/"
+              f"{res_p.nan_restarts}")
+    print(f"table1 MSE: {json.dumps(rows)}")
+
+
+def train_f8(dev, paths):
+    """examples/train_f8_crusader.py's shape: 8 traces, noise 0.005, windows
+    of 24 at stride 6 (776), hidden 96, batches of 64, lr 2e-3, then
+    recover (polished) and the reconstruction MSE over all 776 windows.
+    The first F8_PARITY_STEPS steps are replayed on the CPU on the same
+    batches from the same params: losses within rtol 1e-3 (the multi-step
+    tolerance of tests/test_torch_model.py)."""
+    from itertools import islice
+
+    from repro_torch.core.merinda import Merinda, MerindaConfig
+    from repro_torch.core.trainer import fit
+    from repro_torch.data.pipeline import WindowDataset
+    from repro_torch.systems.f8_crusader import F8Crusader
+    system = F8Crusader()
+    tr, gen = _finite_traces(system, 0, 8, dev, noise_std=0.005)
+    ds = WindowDataset.from_trace(tr.ys_noisy, tr.us, tr.dt, window=24,
+                                  stride=6)
+    model = Merinda(MerindaConfig(
+        n=3, m=1, order=3, dt=tr.dt, hidden=96,
+        n_active=int((np.abs(system.true_theta()) > 0).sum())))
+    params = model.init(gen, model.norm_stats(ds.y_win, ds.u_win),
+                        device=dev)
+    batches = list(islice(ds.batches(gen, 64, epochs=10_000), F8_STEPS))
+    res, ms, per = _timed_path(paths, "train_f8", F8_STEPS, lambda: fit(
+        model, params, iter(batches), steps=F8_STEPS, lr=2e-3))
+
+    def recover():
+        theta = model.recover(res.params, ds.y_win, ds.u_win)
+        return theta, float(model.reconstruction_mse(theta, ds.y_win,
+                                                     ds.u_win))
+    t0 = time.perf_counter()
+    theta, mse = counted(paths, "f8_recover", recover)
+    rec_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.isfinite(mse) and torch.isfinite(theta).all()):
+        raise RuntimeError(f"train_f8: MSE {mse}, theta {theta}")
+    print(f"  {ds.n_windows} windows; {F8_STEPS} steps, "
+          f"{res.nan_restarts} nan restarts, loss {res.history[0]:.5g} -> "
+          f"{res.history[-1]:.5g}; {ms:.2f} ms per step, launches per step "
+          f"{per}; recover (polished) + reconstruction MSE {rec_ms:.2f} ms, "
+          f"MSE {mse:.6g}")
+    print(f"  recovered: {model.lib.coeff_dict(theta)}")
+    # the CPU replay switches the sparsify mask on at the card's step
+    # (fit's default: half the steps), or never within its own steps
+    switch = min(int(F8_STEPS * 0.5) + 0.5, F8_PARITY_STEPS)
+    cpu = fit(model, _to(params, "cpu"),
+              iter([(y.cpu(), u.cpu()) for y, u in
+                    batches[:F8_PARITY_STEPS]]),
+              steps=F8_PARITY_STEPS, lr=2e-3,
+              sparsify_after=switch / F8_PARITY_STEPS)
+    card = res.history[:F8_PARITY_STEPS]
+    if cpu.nan_restarts or not np.allclose(card, cpu.history, rtol=1e-3,
+                                           atol=0):
+        raise RuntimeError(f"train_f8 losses: card {card}, CPU "
+                           f"{cpu.history}")
+    print(f"  first {F8_PARITY_STEPS} losses, card {card}, CPU "
+          f"{cpu.history}: within rtol 1e-3")
+    profiled("5 F-8 fit steps (hidden 96, 64 windows)",
+             lambda: fit(model, res.params, iter(batches[:5]), steps=5,
+                         lr=2e-3))
+
+
+def fleet_offline(dev, paths):
+    """examples/fleet_twinning.py's shape: 16 F-8 twins, 32 windows each
+    (24 samples at stride 8), hidden 64, n_active 24, FLEET_STEPS fused
+    steps, then recover_all."""
+    from repro_torch.core.fleet import FleetConfig, FleetMerinda
+    from repro_torch.core.merinda import MerindaConfig
+    from repro_torch.data.pipeline import make_windows
+    from repro_torch.systems.f8_crusader import F8Crusader
+    F = 16
+    system = F8Crusader()
+    tr, gen = _finite_traces(system, 0, F, dev, noise_std=0.005)
+    y_win, u_win = make_windows(tr.ys_noisy, tr.us, window=24, stride=8)
+    y_win = y_win.unflatten(0, (F, -1))[:, :32].contiguous()
+    u_win = u_win.unflatten(0, (F, -1))[:, :32].contiguous()
+    fleet = FleetMerinda(FleetConfig(merinda=MerindaConfig(
+        n=3, m=1, order=3, dt=system.spec.dt, hidden=64, n_active=24),
+        fleet=F), device=dev)
+    state = fleet.init(gen)
+
+    def run(state, steps):
+        for _ in range(steps):
+            state, loss = fleet.train_step(state, y_win, u_win)
+        return state, float(loss)
+    (state, loss), ms, per = _timed_path(paths, "fleet_offline", FLEET_STEPS,
+                                         lambda: run(state, FLEET_STEPS))
+    thetas = counted(paths, "fleet_offline",
+                     lambda: fleet.recover_all(state, y_win, u_win))
+    if not (np.isfinite(loss) and torch.isfinite(thetas).all()):
+        raise RuntimeError(f"fleet_offline: loss {loss}")
+    print(f"  {F} twins x {y_win.shape[1]} windows: {FLEET_STEPS} fused "
+          f"steps, {ms:.2f} ms per step ({ms / F:.3f} ms per twin), "
+          f"launches per step {per}, last loss {loss:.5g}; recover_all "
+          f"theta {tuple(thetas.shape)}, mean |theta| "
+          f"{float(thetas.abs().mean()):.4f}")
+    profiled("3 fused fleet steps (16 twins)", lambda: run(state, 3))
+
+
+def offline(dev, paths):
+    for what, fn in (("simulate: every registered system", simulate_systems),
+                     ("table1: quick protocol", table1),
+                     ("train_f8: F-8 training, hidden 96", train_f8),
+                     ("fleet_offline: 16 F-8 twins", fleet_offline)):
+        print(f"-- {what}")
+        t0 = time.perf_counter()
+        fn(dev, paths)
+        print(f"   ({time.perf_counter() - t0:.1f} s)")
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -922,7 +1322,12 @@ def main() -> int:
     print(f"== 6. LM card against CPU: {LM_PARITY_LAYERS} layers, f32")
     lm_parity(dev)
 
-    print("== 7. kernel times at the serving shapes")
+    print("== 7. offline model recovery on the card")
+    t0 = time.perf_counter()
+    offline(dev, paths)
+    print(f"offline phase: {time.perf_counter() - t0:.1f} s")
+
+    print("== 8. kernel times at the serving and offline shapes")
     lines = kernel_lines(dev, paths, worst)
     print(json.dumps({"kernels": lines}))
     print(smi)

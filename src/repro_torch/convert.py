@@ -13,13 +13,15 @@ import torch
 
 from repro_torch.train.optimizer import AdamState
 
-__all__ = ["merinda_params_from_jax", "fleet_state_from_jax",
-           "lm_params_from_jax"]
+__all__ = ["merinda_params_from_jax", "baseline_params_from_jax",
+           "fleet_state_from_jax", "lm_params_from_jax"]
 
 
 def _tensors(tree, device, dtype=torch.float32):
     if isinstance(tree, dict):
         return {k: _tensors(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device, dtype) for v in tree]
     return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
 
 
@@ -27,6 +29,13 @@ def merinda_params_from_jax(tree, device="cpu") -> dict:
     """`Merinda.init` params ({"gru", "head", "norm"} of arrays, optionally
     with a leading fleet axis) -> the port's nested dict of float32
     tensors."""
+    return _tensors(tree, device)
+
+
+def baseline_params_from_jax(tree, device="cpu") -> dict:
+    """`Emily.init` ({"mlp": [{"w", "b"}, ...]}) or `PinnSR.init` params
+    ({"mlp", "freqs", "y_mu", "y_sigma", "theta", "mask"}) -> the port's
+    dicts and lists of float32 tensors."""
     return _tensors(tree, device)
 
 

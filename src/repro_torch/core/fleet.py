@@ -139,5 +139,6 @@ class FleetMerinda:
     @torch.no_grad()
     def recover_all(self, state, y_win, u_win):
         """Batched model extraction, no polish: theta [F, n, L]."""
-        return self.model.recover(state["params"], y_win, u_win)
+        return self.model.recover(state["params"], y_win, u_win,
+                                  polish=False)
 

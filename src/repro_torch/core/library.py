@@ -76,6 +76,16 @@ class PolyLibrary:
         return torch.prod(gathered, dim=-1)
 
     # ------------------------------------------------------------------ #
+    def coeff_dict(self, theta, state_names=None, atol: float = 1e-8):
+        """Theta [n, L] as {state: {term: coeff}}, terms above `atol`."""
+        theta = np.asarray(torch.as_tensor(theta).detach().cpu())
+        state_names = state_names or [f"dy{i}/dt" for i in range(self.n)]
+        return {state_names[i]: {self.names[j]: float(theta[i, j])
+                                 for j in range(self.size)
+                                 if abs(theta[i, j]) > atol}
+                for i in range(self.n)}
+
+    # ------------------------------------------------------------------ #
     def theta_from_terms(self, rows: list[dict[str, float]]) -> np.ndarray:
         """Build a dense Theta [n, L] (float64) from per-state
         {term_name: coeff} dicts."""

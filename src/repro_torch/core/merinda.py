@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.library import PolyLibrary, make_library
+from repro_torch.core.sparse_regression import masked_ridge
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.gru.ops import gru_scan
 from repro_torch.kernels.gru.ref import init_gru_params
@@ -225,13 +226,35 @@ class Merinda:
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def recover(self, params, y_win, u_win, polish: bool = False):
+    def recover(self, params, y_win, u_win, polish: bool = True):
         """One global sparse model from all windows: median-pooled
-        coefficients, re-sparsified.  Returns theta [..., n, L]."""
-        if polish:
-            raise NotImplementedError("polish (masked ridge) is not ported "
-                                      "yet; use polish=False")
+        coefficients, re-sparsified.  Returns theta [..., n, L].
+
+        polish: refit the coefficient VALUES on that support by masked
+        ridge regression against central-difference derivatives of the
+        windows (removes the L1 shrinkage bias; the support stays the
+        network's)."""
         theta_dense, _ = self.encode(params, y_win, u_win)
         pooled = median_midpoint(theta_dense, dim=-3, keepdim=True)
-        return self.sparsify(pooled, True,
-                             params["norm"]["phi_scale"]).squeeze(-3)
+        theta = self.sparsify(pooled, True,
+                              params["norm"]["phi_scale"]).squeeze(-3)
+        if not polish:
+            return theta
+        cfg = self.cfg
+        dy = ((y_win[..., 2:, :] - y_win[..., :-2, :])
+              / (2.0 * cfg.dt)).flatten(-3, -2)
+        y_mid = y_win[..., 1:-1, :].flatten(-3, -2)
+        u_mid = u_win[..., 1:, :].flatten(-3, -2)
+        phi = self.lib.eval(y_mid, u_mid if cfg.m else None)
+        mask = (torch.abs(theta) > 0).to(theta.dtype)
+        return masked_ridge(phi, dy, mask)
+
+    @torch.no_grad()
+    def reconstruction_mse(self, theta, y_win, u_win):
+        """MSE of the trajectories re-integrated with theta [..., n, L] from
+        each window's first sample against the windows (no clamp; see
+        core/metrics.py for the clamped Table I score)."""
+        theta_b = theta.unsqueeze(-3).expand(y_win.shape[:-2]
+                                             + theta.shape[-2:])
+        y_est = self.decode(theta_b, y_win[..., 0, :], u_win)
+        return torch.mean(torch.square(y_est - y_win))

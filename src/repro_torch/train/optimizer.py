@@ -1,9 +1,9 @@
-"""AdamW and global-norm clipping over nested dicts of tensors.
+"""AdamW and global-norm clipping over nested dicts and lists of tensors.
 
-The pieces core/fleet.py needs, with the JAX package's arithmetic: the same
+The pieces core/fleet.py and core/trainer.py need, with the JAX package's arithmetic: the same
 update formula, bias correction from a shared int32 step counter, and leaves
-visited in sorted-key order (JAX's dict pytree order), so sums over leaves
-add in the same order.
+visited in JAX's pytree order (dicts by sorted key, lists in order), so
+sums over leaves add in the same order.
 """
 from __future__ import annotations
 
@@ -17,17 +17,22 @@ __all__ = ["AdamState", "Optimizer", "adamw", "apply_updates", "global_norm",
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
-    """Leaves of a nested dict, in sorted-key order."""
+    """Leaves of nested dicts (in sorted-key order) and lists (in order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for node in tree for leaf in tree_leaves(node)]
     return [tree]
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """Apply `fn` leafwise over nested dicts of the same structure."""
+    """Apply `fn` leafwise over nested dicts and lists of one structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, node, *(r[i] for r in rest))
+                for i, node in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -39,6 +44,8 @@ def tree_unflatten(like, leaves):
     def fill(node):
         if isinstance(node, dict):
             return {k: fill(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [fill(x) for x in node]
         return next(it)
     return fill(like)
 

@@ -9,7 +9,10 @@ Shapes are the serving path's (GRU: 8 refit slots x B windows, T=24, D=4,
 H=32, and H=16, 48, 64, 100, T=1, 50 (two prologue chunks), B=1, D=5;
 RK4: n=3, order 3, T=24) with a full and a ragged batch, and RK4 at
 one instance, a fleet of 2048, n = 1 without inputs, L past two term
-groups and orders above 4.  Tolerances: forward GRU 1e-5 absolute and RK4
+groups and orders above 4.  Offline recovery's shapes: the GRU at input
+widths 2 and 3 (hidden 64) and at F-8's recover (776 windows, hidden
+96); RK4 at every registered system's (n, m, order) and over one
+6,000-step F-8 simulation (each trace within 1e-4 of its envelope).  Tolerances: forward GRU 1e-5 absolute and RK4
 rtol 1e-4 / atol 1e-5 (fp32 sums in another order than the plain version);
 gradients rtol 1e-4 / atol 1e-5 (the backward replays the plain version on
 the saved inputs).  The linear scan (RWKV-6 prefill: H=40, K=V=64, chunk
@@ -29,6 +32,8 @@ from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
 from repro_torch.kernels.rk4.ops import rk4_poly_solve
 from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
+from repro_torch.systems.f8_crusader import F8Crusader
+from repro_torch.systems.simulate import register_systems, simulate_from
 
 GRAD = dict(rtol=1e-4, atol=1e-5)
 
@@ -130,6 +135,95 @@ def test_rk4_kernel_shapes(cuda, B, n, m, order, T):
     assert rk4_poly_solve.launches == before + 1
     ref = rk4_poly_solve_ref(theta, y0, us, 0.01, lib.indices_on(cuda))
     torch.testing.assert_close(ys, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H,B", [(2, 64, 64), (3, 64, 64), (2, 64, 13),
+                                   (3, 64, 13), (4, 96, 776)])
+def test_gru_kernel_offline_widths(cuda, D, H, B):
+    """Offline recovery's encoder: Table I's m = 0 systems (D = n = 2, 3)
+    at hidden 64, and F-8's recover over 776 windows at hidden 96; shared
+    weights, forward and gradients."""
+    rng = np.random.default_rng((D, H, B))
+    s = 0.18 * (32 / H) ** 0.5
+    arrays = (rng.normal(size=(B, 24, D)), 0.1 * rng.normal(size=(B, H)),
+              rng.uniform(-0.5, 0.5, (D, 3 * H)),
+              rng.uniform(-s, s, (H, 3 * H)), 0.1 * rng.normal(size=(3 * H,)))
+    args, ref_args = _on(cuda, *arrays), _on(cuda, *arrays)
+    before = gru_scan.launches
+    outs, grads = _grads(gru_scan, args)
+    torch.cuda.synchronize()
+    assert gru_scan.launches == before + 1
+    ref_outs, ref_grads = _grads(gru_scan_ref, ref_args)
+    for o, r in zip(outs, ref_outs):
+        torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, **GRAD)
+
+
+def _system_inputs(name, B, T, substeps, seed):
+    """A registered system's library and perturbed coefficients, y0 and
+    inputs from its spec (inputs repeated `substeps` times)."""
+    system = register_systems()[name]()
+    lib = system.library()
+    gen = torch.Generator().manual_seed(seed)
+    true = torch.as_tensor(system.true_theta(lib), dtype=torch.float32)
+    theta = true * (1 + 0.05 * torch.randn((B,) + true.shape, generator=gen))
+    y0 = system.sample_y0(gen, (B,))
+    us = system.sample_inputs(gen, T, (B,)).movedim(0, 1)
+    return (lib, system.spec.dt / substeps,
+            (theta, y0, us.repeat_interleave(substeps, dim=1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(register_systems()))
+def test_rk4_kernel_at_every_system_shape(cuda, name):
+    """Every registered system's (n, m, order), m = 0 included: 61
+    instances, 24 steps of its own dt, forward and gradients."""
+    lib, dt, arrays = _system_inputs(name, 61, 24, 1, len(name))
+    args = [a.to(cuda).requires_grad_() for a in arrays]
+    ref_args = [a.to(cuda).requires_grad_() for a in arrays]
+    before = rk4_poly_solve.launches
+    outs, grads = _grads(
+        lambda *a: rk4_poly_solve(*a, dt=dt, library=lib), args)
+    torch.cuda.synchronize()
+    assert rk4_poly_solve.launches == before + 1
+    ref_outs, ref_grads = _grads(
+        lambda *a: rk4_poly_solve_ref(*a, dt, lib.indices_on(cuda)),
+        ref_args)
+    torch.testing.assert_close(outs[0], ref_outs[0], rtol=1e-4, atol=1e-5)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, **GRAD)
+
+
+@pytest.mark.cuda
+def test_rk4_kernel_over_a_simulation(cuda):
+    """One F-8 simulation in one launch: 4 traces of 600 samples x 10
+    substeps = 6,000 steps, each trace within 1e-4 of its envelope of the
+    plain version (rounding over 6,000 steps)."""
+    lib, dt, arrays = _system_inputs("f8_crusader", 4, 600, 10, 0)
+    theta, y0, us = (a.to(cuda) for a in arrays)
+    with torch.no_grad():
+        ys = rk4_poly_solve(theta, y0, us, dt=dt, library=lib)
+        ref = rk4_poly_solve_ref(theta, y0, us, dt, lib.indices_on(cuda))
+    assert ys.shape == (4, 6001, 3)
+    finite = torch.isfinite(ref).flatten(1).all(dim=1)
+    assert torch.equal(torch.isfinite(ys).flatten(1).all(dim=1), finite)
+    err = (ys - ref)[finite].abs().flatten(1).max(dim=1).values
+    assert (err <= 1e-4 * ref[finite].abs().flatten(1).max(dim=1).values
+            ).all()
+
+
+@pytest.mark.cuda
+def test_rk4_kernel_refuses_more_than_16_states(cuda):
+    """F8Crusader(n_aircraft=6) has 18 states, past the kernel's 16 (one
+    warp holds [1, Y, U]): the card raises, it never falls back to the
+    plain version (ROADMAP, open kernel work)."""
+    before = rk4_poly_solve.launches
+    with pytest.raises(ValueError, match="exceed the kernel's limits"):
+        simulate_from(F8Crusader(n_aircraft=6), torch.zeros(2, 18),
+                      torch.zeros(2, 3, 1), device=cuda)
+    assert rk4_poly_solve.launches == before
 
 
 def _scan_inputs(dev, B, H, T, K, V, dtype, seed, strong=False):

@@ -90,7 +90,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         api.cache_init(2, 64)
     assert ServeEngine(api, device="cpu").device == torch.device("cpu")
 
-    from repro_torch.systems.f8_crusader import F8Crusader, simulate
+    from repro_torch.core.emily import Emily, EmilyConfig
+    from repro_torch.core.pinn_sr import PinnSR, PinnSRConfig
+    from repro_torch.launch.train import parser, train_merinda
+    from repro_torch.systems.f8_crusader import F8Crusader
+    from repro_torch.systems.simulate import (simulate, simulate_batch,
+                                              simulate_from)
     from repro_torch.twin.packed import (PackedFleet, fleet_pressure,
                                          fleet_scores)
     from repro_torch.twin.scheduler import (PackedRefitScheduler,
@@ -107,8 +112,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                                                  **d),
         "fleet_scores": lambda **d: fleet_scores(packed, k=2, **score, **d),
         "fleet_pressure": lambda **d: fleet_pressure(packed, **score, **d),
-        "simulate": lambda **d: simulate(F8Crusader(), gen, batch=1,
-                                         horizon=2, **d),
+        "simulate": lambda **d: simulate(F8Crusader(), gen, horizon=2, **d),
+        "simulate_batch": lambda **d: simulate_batch(F8Crusader(), gen, 2,
+                                                     horizon=2, **d),
+        "simulate_from": lambda **d: simulate_from(
+            F8Crusader(), torch.zeros(1, 3), torch.zeros(1, 2, 1), **d),
+        "Emily.init": lambda **d: Emily(EmilyConfig(n=2, m=1)).init(gen,
+                                                                    **d),
+        "PinnSR.init": lambda **d: PinnSR(PinnSRConfig(n=2, m=1)).init(gen,
+                                                                       **d),
+        "train_merinda": lambda **d: train_merinda(parser().parse_args(
+            ["--merinda", "lotka_volterra", "--steps", "1"]), **d),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -116,7 +116,7 @@ def test_norm_stats_and_recover_match_jax():
     jt = jm.recover(jax.tree.map(jnp.asarray, p), jnp.asarray(y),
                     jnp.asarray(u), polish=False)
     tt = model.recover(merinda_params_from_jax(p), torch.from_numpy(y),
-                       torch.from_numpy(u))
+                       torch.from_numpy(u), polish=False)
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-5,
                                atol=1e-7)
     x = torch.tensor([4.0, 1.0, 3.0, 2.0])
@@ -230,7 +230,8 @@ def test_f8_true_theta_and_simulation_match_jax():
     x 40 samples; 1e-5 absolute)."""
     from repro.core.odeint import integrate
     from repro.systems.f8_crusader import F8Crusader as JaxF8
-    from repro_torch.systems.f8_crusader import F8Crusader, simulate
+    from repro_torch.systems.f8_crusader import F8Crusader
+    from repro_torch.systems.simulate import simulate_from
 
     jsys, tsys = JaxF8(), F8Crusader()
     lib, jlib = make_library(3, 1, 3), jax_make_library(3, 1, 3)
@@ -242,7 +243,6 @@ def test_f8_true_theta_and_simulation_match_jax():
     want = np.stack([np.asarray(integrate(jsys.rhs, jnp.asarray(y0[b]),
                                           jnp.asarray(us[b]), 0.01,
                                           substeps=10)) for b in range(4)])
-    ys, noisy, _ = simulate(tsys, torch.Generator().manual_seed(0), batch=4,
-                            horizon=40, y0=y0, us=us, device="cpu")
-    np.testing.assert_allclose(ys.numpy(), want, rtol=0, atol=1e-5)
-    assert torch.equal(noisy, ys)          # noise_std defaults to 0
+    tr = simulate_from(tsys, y0, us, device="cpu")
+    np.testing.assert_allclose(tr.ys.numpy(), want, rtol=0, atol=1e-5)
+    assert torch.equal(tr.ys_noisy, tr.ys)   # noise_std defaults to 0
