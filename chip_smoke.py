@@ -14,14 +14,30 @@ each of which raises on failure (the script then exits nonzero):
              and gradients; the offline paths' GRU at D = 2, 3 and F-8's
              recover over 776 windows, RK4 at every registered system's
              (n, m, order) and over one 6,000-step F-8 simulation; the
-             linear scan in both modes, bf16 and f32, with and without the
-             bonus, ragged, short, carried and wide);
+             kernels' wide paths: GRU at H = 160 and 256 (D = 4) and at
+             H = 137 (D = 16, beside the fast paths' edge 136), RK4 at
+             F8Crusader(n_aircraft=6) and (n_aircraft=11), 300 steps,
+             forward and gradients; the linear scan in both modes, bf16
+             and f32, with and without the bonus, ragged, short, carried
+             and wide);
   3. serve   64 F-8 twins at the repo's own serving width
              (examples/online_twinning.py), warm-started with the true
              theta, 12 airframes damaged mid-stream, 40 ticks of 8 samples
              per twin, then predict and scenario requests;
   4. parity  the first 10 ticks again on the CPU (plain versions), per-tick
              losses and admissions held to the card's;
+  4b. crash safety, at phase 3's width and telemetry: a snapshot after
+             tick 10 written through train/checkpoint.py and restored into
+             a fresh server, both then served 3 ticks (guard events equal,
+             losses equal); a server checkpointed every 3 ticks with a
+             telemetry journal, dropped at tick 20, restored from the
+             newest commit, the journal suffix replayed (force=True) and
+             served to the end (the flagged set is the uninterrupted run's,
+             0 samples lost); the same with the newest commit torn (falls
+             back one commit); 40 ticks with scheduler="reference" (the
+             packed planner's plans, tick by tick); 40 ticks with
+             async_ingest and 4 sensor threads (no sample lost or
+             duplicated);
   5. LM      rwkv6-3b at its published width (32 layers, d_model 2560, bf16,
              random weights from a seed) behind a 4-slot ServeEngine: 8
              greedy requests, prompts of 256-2048 tokens, 32 new tokens each;
@@ -44,9 +60,9 @@ each of which raises on failure (the script then exits nonzero):
              three launches apart.
 
 Kernel launch counts are set to 0 just before each path (tick, predict,
-scenario, LM prefill, LM decode, and the offline ones: simulate, each Table
-I fit and its scoring, F-8 training and recovery, the fleet) and read just
-after it; a path that launches none of its kernels, or one it does not
+scenario, the crash-safety runs, LM prefill, LM decode, and the offline
+ones: simulate, each Table I fit and its scoring, F-8 training and
+recovery, the fleet) and read just after it; a path that launches none of its kernels, or one it does not
 run, fails.
 
 The last three lines of output are the kernel JSON line, the card's name and
@@ -72,6 +88,14 @@ HISTORY = 96          # samples each twin has streamed before the first tick
 TWINS, DAMAGED, TICKS, DAMAGE_TICK, WARMUP = 64, 12, 40, 4, 3
 PARITY_TICKS = 10
 PROFILE_TICKS = 3     # extra ticks traced by torch.profiler after serving
+# crash safety: the round trip's snapshot tick and the ticks served after it;
+# the checkpoint cadence and the tick the server is dropped at; the sensor
+# threads of the async-ingest run
+ROUNDTRIP_TICK, ROUNDTRIP_AFTER, CKPT_EVERY, KILL_TICK, SENSORS = \
+    10, 3, 3, 20, 4
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+# the kernels' wide paths: F8Crusader(n_aircraft=k) stacks (n = 3k > 16)
+F8_STACKS, WIDE_RK4_B, WIDE_RK4_T = (6, 11), 2, 300
 # H100 SXM peaks: f32 outside the tensor cores, TF32 on them (dense), HBM
 FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 GRU_TOL = dict(rtol=0.0, atol=1e-5)        # fp32, sums in another order
@@ -104,7 +128,14 @@ PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
                 "table1_score": ("gru_scan", "rk4_poly"),
                 "train_f8": ("gru_scan", "rk4_poly"),
                 "f8_recover": ("gru_scan", "rk4_poly"),
-                "fleet_offline": ("gru_scan", "rk4_poly")}
+                "fleet_offline": ("gru_scan", "rk4_poly"),
+                # crash safety: every run serves ticks
+                "crash_roundtrip": ("gru_scan", "rk4_poly"),
+                "crash_checkpointed": ("gru_scan", "rk4_poly"),
+                "crash_replay": ("gru_scan", "rk4_poly"),
+                "crash_torn": ("gru_scan", "rk4_poly"),
+                "reference_planner": ("gru_scan", "rk4_poly"),
+                "async_ingest": ("gru_scan", "rk4_poly")}
 # the offline phase, cut to its budget (about 3 minutes on the card):
 # Table I's quick protocol (benchmarks/table1_accuracy.py: 400 steps, two
 # seeds, four systems) at 200 steps, one seed, F-8 and Lotka-Volterra;
@@ -118,6 +149,12 @@ F8_STEPS, F8_PARITY_STEPS, FLEET_STEPS = 200, 10, 60
 # float32 against float64 on the CPU already differ by 3e-4 of the envelope
 SIM_REL = {"lorenz": 1e-2}
 SIM_REL_DEFAULT = 1e-4
+# RK4's wide path, gradients of sum(ys^2) through 300 steps of an 11-
+# airframe F-8 stack: each leaf within this share of its envelope (max |g|).
+# Elementwise 1e-4 / 1e-5 does not hold for float32 itself there (the plain
+# version in float32 against float64 fails it at entries near 0); phase 2
+# prints that yardstick's envelope share beside the kernel's
+WIDE_GRAD_REL = 1e-4
 
 
 def _server_config():
@@ -184,23 +221,40 @@ def telemetry(device, seed: int = 0):
     return ys, us
 
 
-def _stream(srv, ys, us, t: int):
+def _stream(srv, ys, us, t: int, journal=None):
+    """Tick t's CHUNK samples per twin (journaled first, when a journal is
+    given), then one tick."""
     lo = HISTORY + t * CHUNK
-    srv.ingest_many((i, ys[i, lo:lo + CHUNK], us[i, lo:lo + CHUNK])
-                    for i in range(TWINS))
+    batch = [(i, ys[i, lo:lo + CHUNK], us[i, lo:lo + CHUNK])
+             for i in range(TWINS)]
+    if journal is not None:
+        for chunk in batch:
+            journal.append(*chunk)
+    srv.ingest_many(batch)
     return srv.tick()
+
+
+def _fresh_server(device, ys, us, journal=None, **overrides):
+    """A server of `_server_config()` (with `overrides`), every twin
+    warm-started with the true theta and HISTORY samples streamed."""
+    from repro_torch.twin.server import TwinServer
+    srv = TwinServer(dataclasses.replace(_server_config(), **overrides),
+                     device=device)
+    nominal, _ = _systems()
+    srv.deploy_many(range(TWINS), nominal.true_theta(srv.fleet.model.lib))
+    history = [(i, ys[i, :HISTORY], us[i, :HISTORY]) for i in range(TWINS)]
+    if journal is not None:
+        for chunk in history:
+            journal.append(*chunk)
+    srv.ingest_many(history)
+    return srv
 
 
 def serve(device, ys, us, ticks: int):
     """Warm-start every twin with the true theta, stream HISTORY samples,
     then `ticks` ticks of CHUNK samples per twin.  Returns (server,
     reports)."""
-    from repro_torch.twin.server import TwinServer
-    srv = TwinServer(_server_config(), device=device)
-    nominal, _ = _systems()
-    srv.deploy_many(range(TWINS), nominal.true_theta(srv.fleet.model.lib))
-    srv.ingest_many((i, ys[i, :HISTORY], us[i, :HISTORY])
-                    for i in range(TWINS))
+    srv = _fresh_server(device, ys, us)
     reports = []
     for t in range(ticks):
         reports.append(_stream(srv, ys, us, t))
@@ -237,18 +291,19 @@ def _rk4_inputs(gen, dev, lead, T, m):
     return lib, [t.to(dev) for t in (theta, y0, us)]
 
 
-def _system_rk4_inputs(name, gen, dev, B, T, substeps=1):
-    """A registered system's own library and coefficients, each instance's
-    perturbed by 5% (plus 0.01 on every term), y0 and inputs drawn from
-    its spec; the inputs repeated `substeps` times for a simulation's fine
-    grid.  Returns (lib, dt, [theta, y0, us])."""
+def _system_rk4_inputs(name, gen, dev, B, T, substeps=1, dense=0.01):
+    """A registered system's (or, for a system instance, that system's) own
+    library and coefficients, each instance's perturbed by 5% (plus `dense`
+    on every term), y0 and inputs drawn from its spec; the inputs repeated
+    `substeps` times for a simulation's fine grid.  Returns (lib, dt,
+    [theta, y0, us])."""
     from repro_torch.systems.simulate import register_systems
-    system = register_systems()[name]()
+    system = register_systems()[name]() if isinstance(name, str) else name
     lib = system.library()
     true = torch.as_tensor(system.true_theta(lib), dtype=torch.float32)
     theta = (true * (1 + 0.05 * torch.randn((B,) + true.shape,
                                             generator=gen))
-             + 0.01 * torch.randn((B,) + true.shape, generator=gen))
+             + dense * torch.randn((B,) + true.shape, generator=gen))
     y0 = system.sample_y0(gen, (B,))
     us = system.sample_inputs(gen, T, (B,)).movedim(0, 1)
     us = us.repeat_interleave(substeps, dim=1).contiguous()
@@ -321,7 +376,13 @@ def check_kernels(dev):
                  # at hidden 64, and F-8's recover over all 776 windows
                  ("D=2 H=64 shared B=64", (64,), None, 24, 64, 2),
                  ("D=3 H=64 shared B=64", (64,), None, 24, 64, 3),
-                 ("recover H=96 shared B=776", (776,), None, 24, 96, 4)]
+                 ("recover H=96 shared B=776", (776,), None, 24, 96, 4),
+                 # the fast paths' edge at D = 16, and the wide path past
+                 # it (Wh read through L2): H = 137, 160, 256
+                 ("H=136 D=16 F=2 B=5", (2, 5), 2, 24, 136, 16),
+                 ("wide H=137 D=16 F=2 B=5", (2, 5), 2, 24, 137, 16),
+                 ("wide H=160 F=8 B=8", (8, 8), 8, 24, 160),
+                 ("wide H=256 F=8 B=8", (8, 8), 8, 24, 256)]
     for label, lead, fleet, T, H, *D in gru_cases:
         args = _gru_inputs(gen, dev, lead, fleet, T, H, *D)
         outs, grads = _grads(gru_scan, args)
@@ -355,7 +416,8 @@ def check_kernels(dev):
         _close(f"rk4 {label} grads", grads, ref_grads, GRAD_TOL)
         worst["rk4_poly"] = max(worst["rk4_poly"], err)
         print(f"  rk4_poly   {label:24s} max|err| {err:.3e}")
-    worst["rk4_poly"] = max(worst["rk4_poly"], check_rk4_systems(dev))
+    worst["rk4_poly"] = max(worst["rk4_poly"], check_rk4_systems(dev),
+                            check_rk4_wide(dev))
     worst["linear_scan"] = check_scan(dev)
     return worst
 
@@ -395,6 +457,57 @@ def check_rk4_systems(dev) -> float:
     print(f"  rk4_poly   {'f8 simulation B=4 T=6000':40s} max|err| "
           f"{err:.3e}")
     return max(worst, err)
+
+
+def _f8_stack(k: int):
+    from repro_torch.systems.f8_crusader import F8Crusader
+    return F8Crusader(n_aircraft=k)
+
+
+def check_rk4_wide(dev) -> float:
+    """RK4's wide path (a block an instance, past the warp path's 16
+    states): F8Crusader(n_aircraft=k) for k in F8_STACKS, B = 2, 300 steps
+    of its dt.  Forward at every system's tolerance; gradients within
+    WIDE_GRAD_REL of each leaf's envelope, with the plain version's own
+    float32-against-float64 share printed beside as the yardstick.  Each
+    airframe's coefficients are perturbed by 5% but no zero term is made
+    dense: 0.01 on each of 7,770 cubic terms couples 11 airframes into a
+    system whose trajectory leaves the trim region and diverges."""
+    from repro_torch.kernels.rk4.ops import rk4_poly_solve
+    from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
+    gen = torch.Generator().manual_seed(6)
+    worst = 0.0
+    for k in F8_STACKS:
+        lib, dt, args = _system_rk4_inputs(_f8_stack(k), gen, dev,
+                                           WIDE_RK4_B, WIDE_RK4_T, dense=0.0)
+        idx = lib.indices_on(dev)
+        outs, grads = _grads(
+            lambda *a: rk4_poly_solve(*a, dt=dt, library=lib), args)
+        ref_outs, ref_grads = _grads(
+            lambda *a: rk4_poly_solve_ref(*a, dt, idx), args)
+        torch.cuda.synchronize()
+        label = (f"wide f8x{k} n={lib.n} L={lib.size} B={WIDE_RK4_B} "
+                 f"T={WIDE_RK4_T}")
+        if not torch.isfinite(outs[0]).all():
+            raise RuntimeError(f"rk4 {label}: non-finite trajectory")
+        err = _close(f"rk4 {label}", outs, ref_outs, RK4_TOL)
+        _, f64_grads = _grads(lambda *a: rk4_poly_solve_ref(*a, dt, idx),
+                              [a.double() for a in args])
+        share, f32_share = [], []
+        for name, g, r, r64 in zip(("theta", "y0", "us"), grads, ref_grads,
+                                   f64_grads):
+            env = float(r64.abs().max())
+            share.append(float((g - r).abs().max()) / env)
+            f32_share.append(float((r.double() - r64).abs().max()) / env)
+            if not share[-1] <= WIDE_GRAD_REL:
+                raise RuntimeError(f"rk4 {label} grads: d/d{name} off by "
+                                   f"{share[-1]:.2e} of its envelope "
+                                   f"(limit {WIDE_GRAD_REL})")
+        worst = max(worst, err)
+        print(f"  rk4_poly   {label:40s} max|err| {err:.3e}; grads within "
+              f"{max(share):.2e} of their envelope (plain float32 against "
+              f"float64: {max(f32_share):.2e})")
+    return worst
 
 
 def _scan_inputs(gen, dev, B, H, T, dtype, strong=False):
@@ -573,6 +686,9 @@ GRU_SHAPES = {
     "train F=1 B=64 T=24 D=4 H=96": (1, 64, 24, 96, 4),
     "recover F=1 B=776 T=24 D=4 H=96": (1, 776, 24, 96, 4),
     "lotka_volterra F=1 B=64 T=24 D=2 H=64": (1, 64, 24, 64, 2),
+    # the wide path: hidden widths past the fast paths' 136
+    "wide F=8 B=8 T=24 D=4 H=160": (8, 8, 24, 160, 4),
+    "wide F=8 B=8 T=24 D=4 H=256": (8, 8, 24, 256, 4),
 }
 RK4_SHAPES = {             # the serving paths' calls: (lead, T)
     "refit B=64 T=24": ((64,), 24),
@@ -666,6 +782,15 @@ def kernel_lines(dev, paths, worst):
             lib, dt, args = _system_rk4_inputs(name, gen, dev, B, horizon,
                                                substeps=10)
             cases[label] = (lib, args, dt, (B,))
+        slow = set(RK4_SIM_SHAPES)       # the plain version's long calls
+        for k in F8_STACKS:              # the wide path
+            label = (f"wide f8x{k} n={3 * k} B={WIDE_RK4_B} "
+                     f"T={WIDE_RK4_T}")
+            lib, dt, args = _system_rk4_inputs(_f8_stack(k), gen, dev,
+                                               WIDE_RK4_B, WIDE_RK4_T,
+                                               dense=0.0)
+            cases[label] = (lib, args, dt, (WIDE_RK4_B,))
+            slow.add(label)
         for label, (lib, (theta, y0, us), dt, lead) in cases.items():
             idx = lib.indices_on(dev)
             Bf, n, L, O = int(np.prod(lead)), lib.n, lib.size, idx.shape[1]
@@ -676,7 +801,7 @@ def kernel_lines(dev, paths, worst):
             nbytes = sum(t.nbytes for t in (theta, y0, us, idx, ys))
             flat = [t.reshape((Bf,) + t.shape[len(lead):])
                     for t in (theta, y0, us)]
-            sim = label in RK4_SIM_SHAPES     # 6,000+ plain steps a call
+            sim = label in slow
             timings[label] = _timed(
                 lambda a=(theta, y0, us), lb=lib, h=dt: rk4_poly_solve(
                     *a, dt=h, library=lb),
@@ -827,6 +952,251 @@ def check_parity(reports, cpu_reports):
                                f"CPU {rc.loss}")
         print(f"  tick {t + 1:2d} active {rg.n_active} admitted "
               f"{len(rg.admitted)} loss card {rg.loss} cpu {rc.loss}")
+
+
+# --------------------------------------------------------------------------- #
+# crash safety: snapshot/restore, kill and replay, the reference planner,
+# async ingest
+# --------------------------------------------------------------------------- #
+def _flagged(reports) -> list:
+    return sorted({e.twin_id for r in reports for e in r.events})
+
+
+def _events(report) -> list:
+    return [(e.twin_id, e.kind) for e in report.events]
+
+
+def _run_summary(name, srv, paths, path, smi, ck=None):
+    """One line per sub-run: tick p50/p99 (registry histograms), the path's
+    kernel launches, the checkpoint's snapshot and write seconds, the
+    card."""
+    lat = srv.latency_summary()
+    ticks = (f"tick p50 {lat['p50_ms']:.2f} ms, p99 {lat['p99_ms']:.2f} ms "
+             f"({lat['ticks']} ticks)" if lat["ticks"] else "no ticks")
+    counts = paths[path]
+    line = (f"  {name}: {ticks}; launches gru_scan {counts['gru_scan']}, "
+            f"rk4_poly {counts['rk4_poly']}")
+    if ck is not None:
+        snap, write = ck._m_snapshot, ck._m_write
+        line += (f"; twin_ckpt_snapshot_seconds mean "
+                 f"{snap.sum / max(snap.count, 1):.6f} max {snap.max:.6f} "
+                 f"(n={snap.count}), twin_ckpt_write_seconds mean "
+                 f"{write.sum / max(write.count, 1):.6f} max "
+                 f"{write.max:.6f} (n={write.count})")
+    print(f"{line} [{smi}]")
+
+
+def crash_roundtrip(ys, us, paths, smi):
+    """Snapshot after tick ROUNDTRIP_TICK, written and read back through
+    train/checkpoint.py into a fresh server sharing the modules; both serve
+    the same ROUNDTRIP_AFTER ticks.  Guard events must be identical and
+    losses equal (bit for bit, or within 1e-6 relative: which one is
+    printed)."""
+    from repro_torch.train import checkpoint
+    from repro_torch.twin.server import TwinServer
+
+    def run():
+        srv, _ = serve(None, ys, us, ROUNDTRIP_TICK)
+        d = CKPT_DIR / "roundtrip"
+        t0 = time.perf_counter()
+        host = checkpoint.to_host(srv.snapshot_state())
+        t1 = time.perf_counter()
+        checkpoint.save(d, srv.tick_count, host)
+        t2 = time.perf_counter()
+        twin = TwinServer(srv.cfg, share_modules_from=srv)
+        twin.restore_state(checkpoint.restore(d, srv.tick_count,
+                                              twin.snapshot_state()))
+        t3 = time.perf_counter()
+        pairs = [(_stream(srv, ys, us, t), _stream(twin, ys, us, t))
+                 for t in range(ROUNDTRIP_TICK,
+                                ROUNDTRIP_TICK + ROUNDTRIP_AFTER)]
+        return srv, twin, pairs, (t1 - t0, t2 - t1, t3 - t2)
+
+    srv, twin, pairs, (t_snap, t_write, t_restore) = counted(
+        paths, "crash_roundtrip", run, quiet=True)
+    exact = True
+    for a, b in pairs:
+        if _events(a) != _events(b) or (a.admitted, a.evicted, a.released) \
+                != (b.admitted, b.evicted, b.released):
+            raise RuntimeError(f"round trip: tick {a.tick} differs after "
+                               f"restore: {_events(a)} / {_events(b)}")
+        if (a.loss is None) != (b.loss is None):
+            raise RuntimeError(f"round trip: tick {a.tick} loss {a.loss} "
+                               f"vs {b.loss}")
+        if a.loss is not None and a.loss != b.loss:
+            exact = False
+            if not np.isclose(a.loss, b.loss, rtol=1e-6, atol=0.0):
+                raise RuntimeError(f"round trip: tick {a.tick} loss "
+                                   f"{a.loss} vs restored {b.loss}")
+    print(f"  round trip at tick {ROUNDTRIP_TICK}: {ROUNDTRIP_AFTER} ticks "
+          f"after restore, guard events identical, losses "
+          f"{'equal bit for bit' if exact else 'within 1e-6 relative'} "
+          f"{[a.loss for a, _ in pairs]}; snapshot to host {t_snap:.4f} s, "
+          f"write {t_write:.4f} s, restore {t_restore:.4f} s")
+    _run_summary("round trip, restored server", twin, paths,
+                 "crash_roundtrip", smi)
+
+
+def _restore_and_replay(ck, journal, ys, us, start_tick):
+    """A fresh server restored from the newest committed checkpoint, the
+    journal suffix replayed past the staging bound (force=True), then the
+    telemetry from `start_tick` on served, to the end of the stream.
+    Returns (restored tick, server, reports, samples lost)."""
+    from repro_torch.twin.server import TwinServer
+    srv = TwinServer(_server_config())
+    tick, state = ck.restore_latest(0, srv.snapshot_state())
+    srv.restore_state(state)
+    lost = 0
+    for tid in journal.twin_ids():
+        chunks, n_lost = journal.replay_since(tid, srv.twins[tid].samples)
+        lost += n_lost
+        srv.ingest_many([(tid, y, u) for y, u in chunks], force=True)
+    # no later crash is simulated, so the rest goes unjournaled (a second
+    # restore replays the journal as the first one found it)
+    reports = [_stream(srv, ys, us, t) for t in range(start_tick, TICKS)]
+    return tick, srv, reports, lost
+
+
+def crash_replay(ys, us, reports, paths, smi):
+    """Checkpoint every CKPT_EVERY ticks with a telemetry journal, drop the
+    server at KILL_TICK, restore the newest commit, replay, serve to TICKS:
+    the flagged set must be the uninterrupted run's (phase 3, which flags
+    the damaged 0..DAMAGED-1) and no sample lost.  Then again with the
+    newest commit torn: the restore falls back one commit."""
+    from repro_torch.twin.recovery import (ChaosConfig, ChaosInjector,
+                                           RecoveryConfig, TelemetryJournal,
+                                           TwinCheckpointer)
+    want = _flagged(reports)
+    cfg = _server_config()
+    final = HISTORY + TICKS * CHUNK
+    ck = TwinCheckpointer(RecoveryConfig(ckpt_dir=str(CKPT_DIR / "replay"),
+                                         ckpt_every=CKPT_EVERY, keep=2))
+    chaos = ChaosInjector(ChaosConfig(kill_shard=0, kill_at_tick=KILL_TICK,
+                                      torn_checkpoint=True))
+    journal = TelemetryJournal(horizon=cfg.capacity)
+
+    def before_kill():
+        srv = _fresh_server(None, ys, us, journal)
+        reps = []
+        for t in range(TICKS):
+            if chaos.should_kill(0, srv.tick_count):
+                break
+            reps.append(_stream(srv, ys, us, t, journal))
+            ck.maybe_save(0, srv.tick_count, srv.snapshot_state)
+        ck.wait()
+        return srv, reps
+
+    dead, pre = counted(paths, "crash_checkpointed", before_kill, quiet=True)
+    _run_summary(f"checkpointed run, dropped at tick {dead.tick_count}",
+                 dead, paths, "crash_checkpointed", smi, ck)
+    kill_tick = dead.tick_count
+    del dead
+    for path, tear in (("crash_replay", False), ("crash_torn", True)):
+        torn = None
+        if tear and chaos.should_tear():
+            torn = ck.tear_latest(0)
+        tick, srv, post, lost = counted(
+            paths, path, lambda: _restore_and_replay(
+                ck, journal, ys, us, kill_tick), quiet=True)
+        got = _flagged(pre + post)
+        samples = {r.samples for r in srv.twins.values()}
+        what = (f"torn commit {torn}, fell back to tick {tick}" if tear
+                else f"restored tick {tick}")
+        print(f"  kill at tick {kill_tick}, {what}: flagged {got}, "
+              f"samples per twin {sorted(samples)}, lost {lost}")
+        expect_tick = (kill_tick // CKPT_EVERY) * CKPT_EVERY - (
+            CKPT_EVERY if tear else 0)
+        if tick != expect_tick:
+            raise RuntimeError(f"{path}: restored tick {tick}, expected "
+                               f"{expect_tick}")
+        if got != want or got != list(range(DAMAGED)):
+            raise RuntimeError(f"{path}: flagged {got}, the uninterrupted "
+                               f"run flagged {want} (damaged 0.."
+                               f"{DAMAGED - 1})")
+        if lost or samples != {final}:
+            raise RuntimeError(f"{path}: {lost} samples lost, per-twin "
+                               f"counts {sorted(samples)} (sent {final})")
+        _run_summary(f"restored server ({'torn' if tear else 'newest'} "
+                     f"commit)", srv, paths, path, smi, ck)
+
+
+def reference_planner(ys, us, reports, paths, smi):
+    """TICKS ticks with scheduler="reference": admissions, evictions and
+    releases equal the packed planner's (phase 3) tick by tick."""
+    def run():
+        srv = _fresh_server(None, ys, us, scheduler="reference")
+        return srv, [_stream(srv, ys, us, t) for t in range(TICKS)]
+
+    srv, refs = counted(paths, "reference_planner", run, quiet=True)
+    turnover = 0
+    for a, b in zip(reports, refs):
+        if (a.admitted, a.evicted, a.released) != \
+                (b.admitted, b.evicted, b.released):
+            raise RuntimeError(f"tick {a.tick}: packed planner "
+                               f"{(a.admitted, a.evicted, a.released)}, "
+                               f"reference {(b.admitted, b.evicted, b.released)}")
+        turnover += len(a.admitted) + len(a.evicted) + len(a.released)
+    print(f"  reference planner: {len(refs)} ticks, plans equal the packed "
+          f"planner's tick by tick ({turnover} slot transitions)")
+    _run_summary("reference planner", srv, paths, "reference_planner", smi)
+
+
+def async_ingest(ys, us, paths, smi):
+    """TICKS ticks with async_ingest: each tick's telemetry is ingested by
+    SENSORS threads while the tick runs; after drain() every twin's sample
+    count and its ring row's count equal what was sent."""
+    import threading
+
+    def run():
+        srv = _fresh_server(None, ys, us, async_ingest=True)
+        groups = np.array_split(np.arange(TWINS), SENSORS)
+        try:
+            threads = []
+            for t in range(TICKS):
+                lo = HISTORY + t * CHUNK
+                threads = [threading.Thread(target=srv.ingest_many, args=(
+                    [(int(i), ys[i, lo:lo + CHUNK], us[i, lo:lo + CHUNK])
+                     for i in g],)) for g in groups]
+                for th in threads:
+                    th.start()
+                srv.tick()
+                for th in threads:
+                    th.join()
+            srv.drain()
+        finally:
+            srv.close()
+        return srv
+
+    srv = counted(paths, "async_ingest", run, quiet=True)
+    final = HISTORY + TICKS * CHUNK
+    counts = srv._rstate["count"].cpu().numpy()
+    for tid, rec in srv.twins.items():
+        if rec.samples != final or int(counts[rec.ring_slot]) != final:
+            raise RuntimeError(f"async ingest: twin {tid} counted "
+                               f"{rec.samples}, ring {counts[rec.ring_slot]}"
+                               f", sent {final}")
+    print(f"  async ingest: {SENSORS} sensor threads, {TICKS} ticks, every "
+          f"twin {final} samples in the records and the ring, "
+          f"{srv.dropped_samples} dropped")
+    _run_summary("async ingest", srv, paths, "async_ingest", smi)
+
+
+def crash_safety(ys, us, reports, paths, smi):
+    import shutil
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        for what, fn in (
+                ("round trip", lambda: crash_roundtrip(ys, us, paths, smi)),
+                ("kill and replay",
+                 lambda: crash_replay(ys, us, reports, paths, smi)),
+                ("reference planner",
+                 lambda: reference_planner(ys, us, reports, paths, smi)),
+                ("async ingest", lambda: async_ingest(ys, us, paths, smi))):
+            t0 = time.perf_counter()
+            fn()
+            print(f"   ({what}: {time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -1315,6 +1685,11 @@ def main() -> int:
     print(f"== 4. card against CPU, first {PARITY_TICKS} ticks")
     _, cpu_reports = serve("cpu", ys, us, PARITY_TICKS)
     check_parity(reports, cpu_reports)
+
+    print("== 4b. crash safety at the serving width")
+    t0 = time.perf_counter()
+    crash_safety(ys, us, reports, paths, smi)
+    print(f"crash-safety phase: {time.perf_counter() - t0:.1f} s")
 
     print("== 5. LM serving: rwkv6-3b at full width on the card")
     serve_lm(paths)

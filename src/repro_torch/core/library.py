@@ -76,6 +76,9 @@ class PolyLibrary:
         return torch.prod(gathered, dim=-1)
 
     # ------------------------------------------------------------------ #
+    def term_name(self, j: int) -> str:
+        return self.names[j]
+
     def coeff_dict(self, theta, state_names=None, atol: float = 1e-8):
         """Theta [n, L] as {state: {term: coeff}}, terms above `atol`."""
         theta = np.asarray(torch.as_tensor(theta).detach().cpu())

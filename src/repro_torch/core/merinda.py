@@ -17,7 +17,7 @@ CUDA kernel or the plain version by the device of the tensors.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -48,6 +48,9 @@ class MerindaConfig:
     @property
     def library(self) -> PolyLibrary:
         return make_library(self.n, self.m, self.order)
+
+    def with_(self, **kw) -> "MerindaConfig":
+        return replace(self, **kw)
 
 
 def median_midpoint(x: torch.Tensor, dim: int, keepdim: bool = False):

@@ -51,6 +51,19 @@
 // Accuracy: fp32 FMA with expf/tanhf (no --use_fast_math), so the kernel
 // holds 1e-5 against the plain PyTorch version.
 //
+// The wide path.  Past gru_scan_max_hidden(D) (160 at most; 136 at
+// D = 4, 108 at D = 16) Wh no longer fits a block's shared memory beside
+// the prologue, and one block per sequence instead runs
+// min(1024, 32 ceil(H/32)) threads, each owning the units j = tid,
+// tid + blockDim, ...:
+//   * Wh is read from device memory on every step, row-major as stored, so
+//     the threads of a warp read consecutive columns of a row (coalesced);
+//     3H^2 floats a step (786 KB at H = 256), which stay in L2;
+//   * h, r*h and z live in shared memory [3][H]; two block barriers a step,
+//     as on the fast paths;
+//   * x W_x + b is computed for the thread's unit at each step.
+// A right and simple path; its times are in PERF.md.
+//
 // Measured (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3, 700.00 W):
 // about 0.010 ms at the tick's shape, 0.018 ms at the fleet's and 0.034 ms
 // at F-8 training's, against about 0.034, 0.061 and 0.069 ms for the
@@ -294,6 +307,131 @@ gru_scan_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
   if (valid) hT[row * H + unit] = h;
 }
 
+// ------------------------------------------------------------------------
+// The wide path: any H, Wh read through L2.
+constexpr int kWideMaxThreads = 1024;
+
+// Floats between the wide path's three shared buffers (16-byte aligned).
+__host__ __device__ inline int wide_pitch(int H) { return (H + 3) & ~3; }
+
+// acc[g][0..3] += sum over k < H of v[k] w[g H + k H3] for the NG
+// columns g (v in shared memory, 16-byte aligned; w the thread's unit in
+// row 0 of a gate block of Wh, in device memory).  With Wh in L2 a step
+// is bound by the loads outstanding, so 8 rows of every column are loaded
+// before any is used: 8 NG loads in flight a thread.
+template <int NG>
+__device__ __forceinline__ void wide_dot(float (&acc)[NG][4], const float* v,
+                                         const float* __restrict__ w, int H,
+                                         int H3) {
+  int k = 0;
+  for (; k + 7 < H; k += 8) {
+    const float4 h0 = *reinterpret_cast<const float4*>(v + k);
+    const float4 h1 = *reinterpret_cast<const float4*>(v + k + 4);
+    float wk[NG][8];
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        wk[g][r] = __ldg(w + g * H + (size_t)(k + r) * H3);
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      acc[g][0] = fmaf(h0.x, wk[g][0], acc[g][0]);
+      acc[g][1] = fmaf(h0.y, wk[g][1], acc[g][1]);
+      acc[g][2] = fmaf(h0.z, wk[g][2], acc[g][2]);
+      acc[g][3] = fmaf(h0.w, wk[g][3], acc[g][3]);
+      acc[g][0] = fmaf(h1.x, wk[g][4], acc[g][0]);
+      acc[g][1] = fmaf(h1.y, wk[g][5], acc[g][1]);
+      acc[g][2] = fmaf(h1.z, wk[g][6], acc[g][2]);
+      acc[g][3] = fmaf(h1.w, wk[g][7], acc[g][3]);
+    }
+  }
+  for (; k < H; ++k)
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      acc[g][0] = fmaf(v[k], __ldg(w + g * H + (size_t)k * H3), acc[g][0]);
+}
+
+__global__ void __launch_bounds__(kWideMaxThreads, 1)
+gru_scan_wide_kernel(const float* __restrict__ xs,
+                     const float* __restrict__ h0,
+                     const float* __restrict__ wx,
+                     const float* __restrict__ wh,
+                     const float* __restrict__ b, float* __restrict__ hs,
+                     float* __restrict__ hT, int B, int T, int D, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int H3 = 3 * H, HP = wide_pitch(H);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t row = blockIdx.x;       // flat sequence index f * B + seq
+  const int f = blockIdx.x / B;
+  const float* wx_f = wx + (size_t)f * D * H3;
+  const float* wh_f = wh + (size_t)f * H * H3;
+  const float* b_f = b + (size_t)f * H3;
+  float* s_h = smem;                   // [H]
+  float* s_rh = s_h + HP;              // [H]
+  float* s_z = s_rh + HP;              // [H]
+  for (int j = tid; j < H; j += nt) s_h[j] = h0[row * H + j];
+  __syncthreads();
+  const float* x_row = xs + row * T * D;
+  float* out = hs + row * T * H;
+  for (int t = 0; t < T; ++t, out += H) {
+    const float* xt = x_row + (size_t)t * D;
+    // z and r from h; r*h for the candidate
+    for (int j = tid; j < H; j += nt) {
+      float az = __ldg(b_f + j), ar = __ldg(b_f + H + j);
+      for (int d = 0; d < D; ++d) {
+        const float x = __ldg(xt + d);
+        az = fmaf(x, __ldg(wx_f + (size_t)d * H3 + j), az);
+        ar = fmaf(x, __ldg(wx_f + (size_t)d * H3 + H + j), ar);
+      }
+      float zr[2][4] = {};
+      wide_dot<2>(zr, s_h, wh_f + j, H, H3);
+      const float z = sigmoid_f(az + sum4(zr[0]));
+      const float r = sigmoid_f(ar + sum4(zr[1]));
+      s_z[j] = z;
+      s_rh[j] = r * s_h[j];
+    }
+    __syncthreads();
+    // the candidate and the update; a thread reads and writes only its own
+    // units' h here, so the writes need no barrier before them
+    for (int j = tid; j < H; j += nt) {
+      float ac = __ldg(b_f + 2 * H + j);
+      for (int d = 0; d < D; ++d)
+        ac = fmaf(__ldg(xt + d), __ldg(wx_f + (size_t)d * H3 + 2 * H + j),
+                  ac);
+      float cc[1][4] = {};
+      wide_dot<1>(cc, s_rh, wh_f + 2 * H + j, H, H3);
+      const float c = tanhf(ac + sum4(cc[0]));
+      const float z = s_z[j];
+      const float hn = (1.0f - z) * s_h[j] + z * c;
+      s_h[j] = hn;
+      out[j] = hn;
+    }
+    __syncthreads();
+  }
+  for (int j = tid; j < H; j += nt) hT[row * H + j] = s_h[j];
+}
+
+int launch_wide(const float* xs, const float* h0, const float* wx,
+                const float* wh, const float* b, float* hs, float* hT, int F,
+                int B, int T, int D, int H, cudaStream_t stream) {
+  const int bytes = 3 * wide_pitch(H) * 4;
+  if (bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  static bool opted = false;
+  if (bytes > 48 * 1024 && !opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gru_scan_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = true;
+  }
+  const int warps = (H + 31) / 32;
+  const int threads = warps * 32 < kWideMaxThreads ? warps * 32
+                                                   : kWideMaxThreads;
+  gru_scan_wide_kernel<<<F * B, threads, bytes, stream>>>(
+      xs, h0, wx, wh, b, hs, hT, B, T, D, H);
+  return (int)cudaGetLastError();
+}
+
 typedef void (*GruKernel)(const float*, const float*, const float*,
                           const float*, const float*, float*, float*, int,
                           int, int, int, int);
@@ -311,8 +449,9 @@ GruKernel pick(int W) {
 
 }  // namespace
 
-// The widest hidden size the kernel takes at input width D: W <= 5 warps,
-// and above H = 64 Wh and one step's prologue in a block's shared memory.
+// The widest hidden size of the fast paths at input width D: W <= 5
+// warps, and above H = 64 Wh and one step's prologue in a block's shared
+// memory.  Wider H goes to the wide path.
 extern "C" int gru_scan_max_hidden(int D) {
   int H = 32 * GRU_MAX_W;
   while (H > 0 && chunk_steps(1, D, H) < 1) --H;
@@ -320,15 +459,20 @@ extern "C" int gru_scan_max_hidden(int D) {
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// cudaErrorInvalidValue for a shape the kernel does not take (H past
+// about 19,000, where the wide path's [3][H] buffers outgrow shared
+// memory).
 extern "C" int gru_scan_launch(const float* xs, const float* h0,
                                const float* wx, const float* wh,
                                const float* b, float* hs, float* hT,
                                int F, int B, int T, int D, int H,
                                void* stream) {
-  if (F < 1 || B < 1 || T < 0 || D < 0 || H < 1 || H > 32 * GRU_MAX_W ||
+  if (F < 1 || B < 1 || T < 0 || D < 0 || H < 1 ||
       (long)F * B > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
+  if (H > gru_scan_max_hidden(D))
+    return launch_wide(xs, h0, wx, wh, b, hs, hT, F, B, T, D, H,
+                       (cudaStream_t)stream);
   const int W = (H + 31) / 32;
   const int TC = chunk_steps(T, D, H);
   if (TC < 1) return (int)cudaErrorInvalidValue;

@@ -48,9 +48,32 @@
 // floor.  The one-thread-per-instance design before it took 0.963 ms at
 // the refit shape on the same card.  Times in PERF.md.
 
+//
+// The wide path.  Past one warp's reach (n > 16 or 1+n+m > 32: the JAX
+// package's F8Crusader(n_aircraft=k) for k >= 6 stacks k airframes into
+// n = 3k states, with L = C(n+m+3, 3) terms at order 3: 1,540 at k = 6,
+// 7,770 at k = 11) one BLOCK integrates one instance:
+//   * Xaug = [1, Y, u] and the four stages' k live in shared memory;
+//   * the block's threads compute Phi_l for strided l into shared memory,
+//     in chunks of at most kWideChunk terms when Phi (and Theta) do not
+//     fit;
+//   * warp w reduces the rows i = w, w + 16, ... of Theta . Phi, its lanes
+//     reading Theta[i, l] at consecutive l (coalesced), then a shuffle
+//     reduction;
+//   * Theta is staged once in shared memory when it fits beside Phi
+//     (n L <= about 56,000 floats: k = 6's 27,720 does), else it is read
+//     from device memory on every right-hand side, where after the first
+//     step it sits in L2 (1.0 MB at k = 11);
+//   * the RK4 combination runs on the state threads, in the plain
+//     version's order.
+// Three block barriers a right-hand side: the chain is much longer than
+// the warp path's, and at k = 11 every right-hand side re-reads Theta from
+// L2, kAcc loads in flight a lane.  A slow path that is right; its times
+// are in PERF.md.
+
 #include <cuda_runtime.h>
 
-#define RK4_MAX_N 16
+#define RK4_MAX_N 16     // the warp path's limits; past them, the wide path
 #define RK4_MAX_AUG 32   // 1 + n + m: one lane each
 
 namespace {
@@ -216,8 +239,142 @@ int launch_groups(const float* theta, const float* y0, const float* us,
                                    O, T, dt, stream);
 }
 
+// ------------------------------------------------------------------------
+// The wide path: one block of kWideThreads per instance.
+constexpr int kWideWarps = 16;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideChunk = 8192;           // Phi terms a pass, when chunked
+constexpr int kAcc = 8;                    // accumulators a lane (pow2)
+constexpr int kMaxSmemBytes = 227 * 1024;  // Hopper's opt-in limit a block
+
+// Floats of shared memory: Xaug [1+n+m], k [4][n], Phi [chunk], and Theta
+// [n, L] when it is staged.
+__host__ __device__ inline int wide_floats(int n, int m, int chunk,
+                                           bool stage) {
+  return 1 + n + m + 4 * n + chunk + (stage ? n * chunk : 0);
+}
+
+// k_s = Theta . Phi(Xaug) into k (shared), the whole block.
+__device__ __forceinline__ void wide_rhs(
+    const float* __restrict__ aug, float* __restrict__ k,
+    float* __restrict__ phi, const float* th, const int* __restrict__ term_idx,
+    int n, int L, int O, int chunk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int l0 = 0; l0 < L; l0 += chunk) {
+    const int lc = min(chunk, L - l0);
+    for (int l = threadIdx.x; l < lc; l += kWideThreads) {
+      const int* ix = term_idx + (size_t)(l0 + l) * O;
+      float p = aug[__ldg(ix)];
+      for (int o = 1; o < O; ++o) p *= aug[__ldg(ix + o)];
+      phi[l] = p;
+    }
+    __syncthreads();
+    for (int i = warp; i < n; i += kWideWarps) {
+      const float* row = th + (size_t)i * L + l0;
+      // kAcc independent loads of Theta in flight a lane: with Theta in
+      // L2, the reduction is bound by how many loads are outstanding
+      float acc[kAcc];
+#pragma unroll
+      for (int a = 0; a < kAcc; ++a) acc[a] = 0.0f;
+      int l = lane;
+      for (; l + 32 * (kAcc - 1) < lc; l += 32 * kAcc) {
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a)
+          acc[a] = fmaf(row[l + 32 * a], phi[l + 32 * a], acc[a]);
+      }
+      for (; l < lc; l += 32) acc[0] = fmaf(row[l], phi[l], acc[0]);
+#pragma unroll
+      for (int w = kAcc / 2; w > 0; w >>= 1)
+#pragma unroll
+        for (int a = 0; a < w; ++a) acc[a] += acc[a + w];
+      float sum = acc[0];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(kFull, sum, off);
+      if (lane == 0) k[i] = l0 == 0 ? sum : k[i] + sum;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+rk4_poly_wide_kernel(const float* __restrict__ theta,
+                     const float* __restrict__ y0,
+                     const float* __restrict__ us,
+                     const int* __restrict__ term_idx, float* __restrict__ ys,
+                     int n, int m, int L, int O, int T, int chunk, int stage,
+                     float half_dt, float dt, float dt_sixth) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  float* aug = smem;                           // [1 + n + m]
+  float* ks = aug + 1 + n + m;                 // [4][n]
+  float* phi = ks + 4 * n;                     // [chunk]
+  const float* th = theta + (size_t)b * n * L;
+  if (stage) {                                 // Theta once, on chip
+    float* s_th = phi + chunk;
+    for (int i = threadIdx.x; i < n * L; i += kWideThreads) s_th[i] = th[i];
+    th = s_th;
+  }
+  const int tid = threadIdx.x;
+  // thread i < n keeps y_i in a register; thread n + j owns u_j
+  float y = tid < n ? y0[(size_t)b * n + tid] : 0.0f;
+  float* out = ys + (size_t)b * (T + 1) * n;
+  if (tid < n) out[tid] = y;
+  const float* ub = us + (size_t)b * T * m;
+  if (tid == 0) aug[0] = 1.0f;
+  for (int t = 0; t < T; ++t) {
+    if (tid >= n && tid < n + m) aug[1 + tid] = __ldg(ub + (size_t)t * m +
+                                                      (tid - n));
+    if (tid < n) aug[1 + tid] = y;
+    __syncthreads();
+    wide_rhs(aug, ks, phi, th, term_idx, n, L, O, chunk);
+    if (tid < n) aug[1 + tid] = y + half_dt * ks[tid];
+    __syncthreads();
+    wide_rhs(aug, ks + n, phi, th, term_idx, n, L, O, chunk);
+    if (tid < n) aug[1 + tid] = y + half_dt * ks[n + tid];
+    __syncthreads();
+    wide_rhs(aug, ks + 2 * n, phi, th, term_idx, n, L, O, chunk);
+    if (tid < n) aug[1 + tid] = y + dt * ks[2 * n + tid];
+    __syncthreads();
+    wide_rhs(aug, ks + 3 * n, phi, th, term_idx, n, L, O, chunk);
+    if (tid < n) {
+      y = y + dt_sixth * (ks[tid] + 2.0f * ks[n + tid] +
+                          2.0f * ks[2 * n + tid] + ks[3 * n + tid]);
+      out[(size_t)(t + 1) * n + tid] = y;
+    }
+    // the next step's writes of aug follow wide_rhs's closing barrier and
+    // touch no value a thread still reads
+  }
+}
+
+int launch_wide(const float* theta, const float* y0, const float* us,
+                const int* term_idx, float* ys, int B, int n, int m, int L,
+                int O, int T, double dt, cudaStream_t stream) {
+  if (n > kWideThreads || n + m > kWideThreads)
+    return (int)cudaErrorInvalidValue;    // a thread per state and input
+  const bool stage =
+      (size_t)wide_floats(n, m, L, true) * 4 <= (size_t)kMaxSmemBytes;
+  const int chunk = stage ? L : (L < kWideChunk ? L : kWideChunk);
+  const int bytes = wide_floats(n, m, chunk, stage) * 4;
+  if (bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  static bool opted = false;
+  if (bytes > 48 * 1024 && !opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rk4_poly_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = true;
+  }
+  rk4_poly_wide_kernel<<<B, kWideThreads, bytes, stream>>>(
+      theta, y0, us, term_idx, ys, n, m, L, O, T, chunk, stage ? 1 : 0,
+      (float)(0.5 * dt), (float)dt, (float)(dt / 6.0));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// The warp path's limits; rk4_poly_launch takes wider shapes through the
+// wide path.
 extern "C" int rk4_poly_max_n() { return RK4_MAX_N; }
 extern "C" int rk4_poly_max_aug() { return RK4_MAX_AUG; }
 
@@ -226,10 +383,11 @@ extern "C" int rk4_poly_launch(const float* theta, const float* y0,
                                const float* us, const int* term_idx,
                                float* ys, int B, int n, int m, int L, int O,
                                int T, double dt, void* stream) {
-  if (B < 1 || n < 1 || n > RK4_MAX_N || m < 0 || 1 + n + m > RK4_MAX_AUG ||
-      L < 1 || O < 1 || T < 0)
+  if (B < 1 || n < 1 || m < 0 || L < 1 || O < 1 || T < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n > RK4_MAX_N || 1 + n + m > RK4_MAX_AUG)
+    return launch_wide(theta, y0, us, term_idx, ys, B, n, m, L, O, T, dt, st);
   return O <= 3 ? launch_groups<3>(theta, y0, us, term_idx, ys, B, n, m, L, O,
                                    T, dt, st)
                 : launch_groups<4>(theta, y0, us, term_idx, ys, B, n, m, L, O,

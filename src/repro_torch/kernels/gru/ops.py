@@ -17,7 +17,9 @@ does the same, and the JAX package has no backward kernel to port.  The
 kernel runs one block per sequence of ceil(H/32) warps, each lane owning
 one hidden unit: with its Wh columns in registers up to H = 64, above that
 with Wh in the block's shared memory, up to H =
-`lib.gru_scan_max_hidden(D)` (136 at D = 4).  No padding happens here.
+`lib.gru_scan_max_hidden(D)` (136 at D = 4).  Wider H takes the kernel's
+wide path (up to 1024 threads a sequence, Wh read through L2), so every
+width runs on the card.  No padding happens here.
 """
 from __future__ import annotations
 
@@ -51,10 +53,6 @@ def gru_scan_kernel(xs, h0, wx, wh, b):
         if not t.is_contiguous():
             raise ValueError(f"gru_scan kernel: {name} is not contiguous")
     lib = backend.load_library()
-    max_h = lib.gru_scan_max_hidden(D)
-    if H > max_h:
-        raise ValueError(f"gru_scan kernel: hidden {H} > {max_h} at input "
-                         f"width {D} (Wh must fit a block's shared memory)")
     hs = torch.empty((F, B, T, H), dtype=torch.float32, device=dev)
     hT = torch.empty((F, B, H), dtype=torch.float32, device=dev)
     if F == 0 or B == 0:

@@ -7,7 +7,9 @@ coefficients are per-instance operands, so folding is exact.  On a CUDA
 tensor the forward launches the kernel (`_RK4Kernel`) and the backward
 replays the plain version under autograd, as the JAX `custom_vjp` does.
 The kernel masks its own ragged batch edge and reads no input channel when
-m == 0, so there is neither padding nor a dummy channel here.
+m == 0, so there is neither padding nor a dummy channel here.  Every (n, m)
+runs on the card: a warp an instance up to n = 16 and 1+n+m = 32, a block
+an instance past that (csrc/rk4_poly.cu's wide path).
 """
 from __future__ import annotations
 
@@ -25,7 +27,10 @@ __all__ = ["rk4_poly_solve", "rk4_poly_kernel"]
 def rk4_poly_kernel(theta, y0, us, term_idx, dt: float):
     """Launch the CUDA kernel (no autograd).  theta [B, n, L], y0 [B, n],
     us [B, T, m], term_idx [L, O] int32, all contiguous on one CUDA device
-    -> ys [B, T+1, n]."""
+    -> ys [B, T+1, n].  A warp integrates an instance up to n =
+    `lib.rk4_poly_max_n()` and 1+n+m = `lib.rk4_poly_max_aug()` (16 and
+    32); past either, a block does (the wide path), so every width the JAX
+    kernel takes runs on the card."""
     B, n, L = theta.shape
     T, m = us.shape[1], us.shape[2]
     O = term_idx.shape[1]
@@ -43,10 +48,6 @@ def rk4_poly_kernel(theta, y0, us, term_idx, dt: float):
         if not t.is_contiguous():
             raise ValueError(f"rk4 kernel: {name} is not contiguous")
     lib = backend.load_library()
-    if n > lib.rk4_poly_max_n() or 1 + n + m > lib.rk4_poly_max_aug():
-        raise ValueError(f"rk4 kernel: n={n}, m={m} exceed the kernel's "
-                         f"limits (n <= {lib.rk4_poly_max_n()}, 1+n+m <= "
-                         f"{lib.rk4_poly_max_aug()})")
     ys = torch.empty((B, T + 1, n), dtype=torch.float32, device=dev)
     if B == 0:
         return ys

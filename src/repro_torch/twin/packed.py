@@ -21,6 +21,16 @@ from repro_torch.kernels.backend import resolve_device
 __all__ = ["PackedFleet", "fleet_scores", "fleet_pressure"]
 
 
+def _pad_capacity(n: int, floor: int = 64) -> int:
+    """Round a row capacity up to a pow2 bucket (tests and tools that build
+    many small fleets from records get a few shapes, not one per fleet;
+    servers pass their exact, fixed `max_twins`)."""
+    cap = floor
+    while cap < n:
+        cap *= 2
+    return cap
+
+
 class PackedFleet:
     """Row-indexed scheduler-state arrays for one server's tracked fleet.
 
@@ -58,10 +68,77 @@ class PackedFleet:
                               self.divergence.astype(np.float32)):
             raise AssertionError("div32 shadow drifted from divergence")
 
+    # ------------------------------------------------------------------ #
+    _COLUMNS = ("twin_id", "registered", "samples", "samples_at_deploy",
+                "deployed", "divergence", "div32", "resident", "residency")
+
+    def snapshot(self) -> dict:
+        """Copy every column into a plain dict of numpy arrays — the
+        checkpointable packed-fleet state (twin/recovery.py).  COPIES, not
+        views: the async checkpoint writer must not race the serving
+        thread's in-place column mutations."""
+        return {c: getattr(self, c).copy() for c in self._COLUMNS}
+
+    def load(self, state: dict) -> None:
+        """Restore columns IN PLACE from a `snapshot()` dict.  In-place
+        (`[:]`) because the server's `_div` aliases `divergence` — rebinding
+        the array would silently sever the guard-to-scheduler data path."""
+        for c in self._COLUMNS:
+            col = getattr(self, c)
+            src = np.asarray(state[c])
+            if src.shape != col.shape:
+                raise ValueError(f"packed column {c!r}: snapshot shape "
+                                 f"{src.shape} != live shape {col.shape}")
+            col[:] = src
+
+    # ------------------------------------------------------------------ #
     def register(self, row: int, twin_id: int) -> None:
         """Bind a row to a twin id; `registered` is set last."""
         self.twin_id[row] = twin_id
         self.registered[row] = True
+
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def from_records(cls, twins: dict, *, capacity: int | None = None
+                     ) -> "PackedFleet":
+        """Build packed arrays from a `TwinRecord` dict (rows =
+        `ring_slot`).  The reference-planner interop path: equivalence
+        tests feed the same record dict to both planners."""
+        max_row = max((r.ring_slot for r in twins.values()), default=-1)
+        cap = (_pad_capacity(max_row + 1) if capacity is None else capacity)
+        if max_row >= cap:
+            raise ValueError(f"ring_slot {max_row} exceeds capacity {cap}")
+        fleet = cls(cap)
+        seen_rows: set[int] = set()
+        for rec in twins.values():
+            if rec.ring_slot in seen_rows:
+                raise ValueError(f"duplicate ring_slot {rec.ring_slot}")
+            seen_rows.add(rec.ring_slot)
+            row = rec.ring_slot
+            fleet.twin_id[row] = rec.twin_id
+            fleet.samples[row] = rec.samples
+            fleet.samples_at_deploy[row] = rec.samples_at_deploy
+            fleet.deployed[row] = rec.deployed
+            fleet.divergence[row] = rec.divergence
+            fleet.div32[row] = fleet.divergence[row]
+            fleet.resident[row] = rec.refit_slot is not None
+            fleet.residency[row] = rec.residency
+            fleet.registered[row] = True
+        return fleet
+
+    def slot_rows_from_records(self, twins: dict, slots: int) -> np.ndarray:
+        """[slots] array of resident ring rows (`capacity` marks an empty
+        slot — the same scratch-row convention as the server's slot ring)."""
+        slot_rows = np.full((slots,), self.capacity, np.int64)
+        for rec in twins.values():
+            if rec.refit_slot is None:
+                continue
+            if not 0 <= rec.refit_slot < slots:
+                raise ValueError(f"refit_slot {rec.refit_slot} out of range")
+            if slot_rows[rec.refit_slot] != self.capacity:
+                raise ValueError(f"slot {rec.refit_slot} doubly occupied")
+            slot_rows[rec.refit_slot] = rec.ring_slot
+        return slot_rows
 
 
 def _priorities(fleet: PackedFleet, min_samples: int, sw: float, dw: float,

@@ -15,11 +15,18 @@ PREEMPTED by a waiting twin whose priority beats it by `evict_margin` after
 `min_residency` ticks; a converged, quiet resident RELEASES its slot after
 `max_residency` ticks.  `max_active` caps how many slots may be filled.
 
-`PackedRefitScheduler` scores the whole fleet in one device pass over the
-packed arrays (twin/packed.py), pops the O(slots) winners through a
-`PriorityBuckets` queue, and re-scores them in float64 with the reference
-arithmetic.  The dict-sorting reference planner (`RefitScheduler`) and the
-slot federation are not ported yet.
+Two planners implement the SAME admission semantics:
+
+  * `RefitScheduler` — the reference: iterates and sorts the whole
+    `TwinRecord` dict per tick, O(n log n) host cost.  Retained as the
+    equivalence oracle (tests/test_torch_scheduler.py) and for tiny fleets
+    (`TwinServerConfig(scheduler="reference")`).
+  * `PackedRefitScheduler` — the default: scores the whole fleet in one
+    device pass over the packed arrays (twin/packed.py), pops the O(slots)
+    winners through a `PriorityBuckets` queue, and re-scores them in float64
+    with the reference arithmetic, so its plans are byte-identical.
+
+The slot federation (multi-server grants) is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.twin.packed import PackedFleet, fleet_pressure, fleet_scores
 
 __all__ = ["TwinRecord", "SchedulerConfig", "SchedulePlan", "SchedulerMetrics",
-           "PriorityBuckets", "PackedRefitScheduler"]
+           "PriorityBuckets", "RefitScheduler", "PackedRefitScheduler"]
 
 
 @dataclass
@@ -94,36 +101,37 @@ class SchedulerMetrics:
     queue_entries: object       # Gauge: live bucket-queue entries
 
     @staticmethod
-    def create(registry) -> "SchedulerMetrics":
-        """Resolve the scheduler's instruments from a `MetricRegistry`."""
+    def create(registry, labels: dict | None = None) -> "SchedulerMetrics":
+        """Resolve the scheduler's instruments from a `MetricRegistry`
+        (`labels`: one set per shard)."""
         return SchedulerMetrics(
             admitted=registry.counter(
                 "twin_sched_admitted_total",
-                help="twins admitted into refit slots"),
+                help="twins admitted into refit slots", labels=labels),
             evicted=registry.counter(
                 "twin_sched_evicted_total",
-                help="twins preempted out of refit slots"),
+                help="twins preempted out of refit slots", labels=labels),
             released=registry.counter(
                 "twin_sched_released_total",
                 help="twins that released their refit slot (converged, "
-                     "stuck, or federation revoke)"),
+                     "stuck, or federation revoke)", labels=labels),
             pressure=registry.gauge(
                 "twin_sched_pressure",
                 help="aggregate staleness+divergence refit demand "
-                     "(federation rebalance signal)"),
+                     "(federation rebalance signal)", labels=labels),
             plan_seconds=registry.histogram(
                 "twin_sched_plan_seconds",
                 help="schedule-planning wall latency per tick (scoring + "
                      "winner selection, excluding slot-reset application)",
-                unit="seconds"),
+                unit="seconds", labels=labels),
             waiting=registry.gauge(
                 "twin_sched_waiting",
                 help="ready twins waiting for a refit slot (planner queue "
-                     "depth)"),
+                     "depth)", labels=labels),
             queue_entries=registry.gauge(
                 "twin_sched_queue_entries",
                 help="live candidate entries held by the bucketed priority "
-                     "queue after planning"))
+                     "queue after planning", labels=labels))
 
 
 # --------------------------------------------------------------------------- #
@@ -227,12 +235,144 @@ class PriorityBuckets:
         return best[0], best[1], best[2]
 
 
+class RefitScheduler:
+    def __init__(self, cfg: SchedulerConfig,
+                 metrics: SchedulerMetrics | None = None):
+        self.cfg = cfg
+        self.metrics = metrics
+
+    # ------------------------------------------------------------------ #
+    def priority(self, rec: TwinRecord) -> float:
+        cfg = self.cfg
+        staleness = (rec.samples - rec.samples_at_deploy) / max(cfg.min_samples, 1)
+        if not rec.deployed:
+            staleness += 1.0
+        return (cfg.staleness_weight * staleness
+                + cfg.divergence_weight * rec.divergence)
+
+    def ready(self, rec: TwinRecord) -> bool:
+        return rec.samples >= self.cfg.min_samples
+
+    def pressure(self, twins: dict[int, TwinRecord]) -> float:
+        """Aggregate refit demand: summed priority over READY twins (waiting
+        AND resident — a shard actively refitting diverged twins is still
+        under pressure).  The federation's rebalancing signal."""
+        p = sum(self.priority(r) for r in twins.values() if self.ready(r))
+        if self.metrics is not None:
+            self.metrics.pressure.set(p)
+        return p
+
+    # ------------------------------------------------------------------ #
+    def plan(self, twins: dict[int, TwinRecord],
+             max_active: int | None = None) -> SchedulePlan:
+        """Decide this tick's slot turnover.  Pure: mutates nothing; the
+        server applies the plan (slot resets + record updates).
+
+        `max_active` caps how many physical slots may be FILLED (the
+        federation grant); None means the whole pool.  When the grant drops
+        below current occupancy, the lowest-priority residents are shed.
+
+        Units: residency thresholds (`min_residency`, `max_residency`) are
+        serving TICKS, not seconds or train steps; `min_samples` is ring
+        telemetry samples.  Host cost is O(n log n) in the number of
+        tracked twins (two sorts per tick) — the reason
+        `PackedRefitScheduler` is the serving default; this planner is the
+        semantics oracle.  Not thread-safe by itself; the server passes
+        a `twin_snapshot()` registry copy so concurrent `ingest`
+        registrations cannot race the iteration.
+
+        Iteration is in twin_id order so equal-priority decisions are
+        deterministic across runs.
+        """
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        cap = (cfg.slots if max_active is None
+               else max(0, min(cfg.slots, max_active)))
+        plan = SchedulePlan()
+        residents = sorted((r for r in twins.values()
+                            if r.refit_slot is not None),
+                           key=lambda r: r.twin_id)
+        waiting = sorted((r for r in twins.values()
+                          if r.refit_slot is None and self.ready(r)),
+                         key=lambda r: (-self.priority(r), r.twin_id))
+        n_waiting = len(waiting)
+
+        # federation revoke: the grant shrank below occupancy — shed the
+        # lowest-priority residents until the shard fits its grant
+        if len(residents) > cap:
+            shed = sorted(residents,
+                          key=lambda r: (self.priority(r), r.twin_id))
+            shed = shed[:len(residents) - cap]
+            shed_ids = {r.twin_id for r in shed}
+            plan.release.extend(sorted(shed_ids))
+            residents = [r for r in residents if r.twin_id not in shed_ids]
+
+        # voluntary release: converged, healthy residents hand back slots.
+        # A resident stuck far past max_residency without converging is
+        # released too (its divergence priority would otherwise let it starve
+        # the waiting queue indefinitely).
+        free: list[int] = sorted(set(range(cfg.slots))
+                                 - {r.refit_slot for r in residents})
+        kept: list[TwinRecord] = []
+        # release only for waiting twins the free slots USABLE under the
+        # grant cannot absorb — releasing more would idle slots and throw
+        # away converged training state
+        usable_free = min(len(free), cap - len(residents))
+        releasable = len(waiting) - usable_free
+        voluntary = 0
+        for r in residents:
+            healthy = r.deployed and r.divergence < cfg.release_divergence
+            stuck = r.residency >= 2 * cfg.max_residency
+            if (voluntary < releasable
+                    and ((r.residency >= cfg.max_residency and healthy)
+                         or stuck)):
+                plan.release.append(r.twin_id)
+                voluntary += 1
+                free.append(r.refit_slot)
+            else:
+                kept.append(r)
+
+        # fill free slots with the best waiting twins, up to the grant
+        free.sort()
+        budget = cap - len(kept)
+        for slot in free:
+            if not waiting or budget <= 0:
+                break
+            plan.admit.append((slot, waiting.pop(0).twin_id))
+            budget -= 1
+
+        # preemption: strongest challengers vs weakest eligible residents
+        evictable = sorted((r for r in kept
+                            if r.residency >= cfg.min_residency),
+                           key=lambda r: (self.priority(r), r.twin_id))
+        for r in evictable:
+            if not waiting:
+                break
+            challenger = waiting[0]
+            if self.priority(challenger) > self.priority(r) + cfg.evict_margin:
+                waiting.pop(0)
+                plan.evict.append(r.twin_id)
+                plan.admit.append((r.refit_slot, challenger.twin_id))
+            else:
+                break   # residents below this one are even harder to beat
+        if self.metrics is not None:
+            if plan.admit:
+                self.metrics.admitted.inc(len(plan.admit))
+            if plan.evict:
+                self.metrics.evicted.inc(len(plan.evict))
+            if plan.release:
+                self.metrics.released.inc(len(plan.release))
+            self.metrics.waiting.set(n_waiting)
+            self.metrics.plan_seconds.observe(time.perf_counter() - t0)
+        return plan
+
+
 # --------------------------------------------------------------------------- #
 # PackedRefitScheduler: device-fused scoring + O(budget + log n) host pops
 # --------------------------------------------------------------------------- #
 class PackedRefitScheduler:
-    """The default planner (the reference dict-sorting planner of the JAX
-    package has the same admission semantics and waits for a later slice).
+    """The default planner: same admission semantics as `RefitScheduler`,
+    different cost model.
 
     Per tick it makes ONE device pass over the `PackedFleet` arrays
     (`packed.fleet_scores`) which returns the top-`slots` waiting
@@ -283,6 +423,15 @@ class PackedRefitScheduler:
         return p
 
     # ------------------------------------------------------------------ #
+    def plan_records(self, twins: dict[int, TwinRecord],
+                     max_active: int | None = None) -> SchedulePlan:
+        """Reference-interop entry: plan from a `TwinRecord` dict by packing
+        it first.  Used by the equivalence tests and tools; the server calls
+        `plan()` directly on its incrementally-maintained fleet."""
+        fleet = PackedFleet.from_records(twins)
+        slot_rows = fleet.slot_rows_from_records(twins, self.cfg.slots)
+        return self.plan(fleet, slot_rows, max_active=max_active)
+
     def plan(self, fleet: PackedFleet, slot_rows: np.ndarray,
              max_active: int | None = None) -> SchedulePlan:
         """Decide this tick's slot turnover from packed fleet state.

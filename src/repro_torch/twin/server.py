@@ -3,12 +3,17 @@
 One `tick()` is a full serving cycle over the whole tracked fleet:
 
     1. FLUSH    staged telemetry into the device ring (one scatter for every
-                twin that produced samples this tick),
+                twin that produced samples this tick).  With `async_ingest`
+                the host-side merge/pad work runs on a background
+                `BackgroundPump` thread (data/pipeline.py); the tick only
+                copies prepared batches to the device and scatters them,
     2. GUARD    RK4-roll deployed thetas over their newest window (the RK4
                 kernel) and EMA-fold the normalized rollout error into each
                 twin's divergence score; REFIT/ALERT events on transitions,
     3. SCHEDULE admit/evict/release twins over the bounded refit-slot pool
-                (`PackedRefitScheduler`, one device pass over packed arrays),
+                (`PackedRefitScheduler`, one device pass over packed arrays;
+                or the reference `RefitScheduler`, which sorts the record
+                dict on the host),
     4. REFIT    `steps_per_tick` FleetMerinda train steps over all slots at
                 once (GRU-scan kernel + RK4 kernel per step),
     5. PROMOTE  recover_all on slots past `deploy_after`, shadow-evaluate
@@ -21,11 +26,17 @@ The ring and the theta store are updated IN PLACE.
 `predict(twin_id, horizon)` rolls the deployed model forward from the
 twin's newest telemetry; `scenario(...)` answers a batched what-if query.
 
-Not ported yet (they raise NotImplementedError): `async_ingest=True` (the
-background flush pump), `scheduler="reference"`, and
-`snapshot_state`/`restore_state`.  The hooks only the sharded and federated
-servers call (`set_active_slots`, `refit_pressure`, `drain`, `close`,
-`inject_delay_s`) come with those servers.
+Crash safety (twin/recovery.py): `snapshot_state` gives the whole serving
+state as a tree of fixed shapes, which a `TwinCheckpointer` writes in the
+JAX package's checkpoint layout; `restore_state` rebuilds a fresh server
+from it (from a JAX server's snapshot too), and `ingest(..., force=True)`
+replays a `TelemetryJournal` suffix past a bounded staging buffer.
+`share_modules_from` lets a restarted server reuse a running one's ring,
+fleet, guard and scenario modules.
+
+Not ported yet: what only the sharded and federated servers call —
+`set_active_slots`, `refit_pressure`, `inject_delay_s` and the `shard=`
+label — which come with those servers.
 """
 from __future__ import annotations
 
@@ -39,9 +50,11 @@ import torch
 
 from repro_torch.core.fleet import FleetConfig, FleetMerinda
 from repro_torch.core.merinda import MerindaConfig
+from repro_torch.data.pipeline import BackgroundPump
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.rk4.ops import rk4_poly_solve
 from repro_torch.obs import MetricRegistry, Tracer
+from repro_torch.train import checkpoint
 from repro_torch.twin.monitor import (DivergenceGuard, GuardConfig,
                                       GuardEvent, GuardInstruments,
                                       GuardRotation)
@@ -50,9 +63,9 @@ from repro_torch.twin.recovery import DegradationConfig, DegradationPolicy
 from repro_torch.twin.scenario import (ScenarioConfig, ScenarioRefused,
                                        ScenarioResult, ScenarioRunner,
                                        effective_k)
-from repro_torch.twin.scheduler import (PackedRefitScheduler, SchedulerConfig,
-                                        SchedulePlan, SchedulerMetrics,
-                                        TwinRecord)
+from repro_torch.twin.scheduler import (PackedRefitScheduler, RefitScheduler,
+                                        SchedulerConfig, SchedulePlan,
+                                        SchedulerMetrics, TwinRecord)
 from repro_torch.twin.service import DeadlineConfig
 from repro_torch.twin.stream import (FlushBatch, RingConfig, StagingBuffer,
                                      StagingOverflow, TelemetryRing,
@@ -85,7 +98,8 @@ class TwinServerConfig(DeadlineConfig):
                                       # int: rotating subset of this size
     guard_carry: int | None = None    # extra per-tick re-scores of flagged
                                       # twins (default: guard_budget // 4)
-    async_ingest: bool = False        # background flush pump (not ported)
+    async_ingest: bool = False        # background staging flush thread
+    ingest_depth: int = 2             # prepared-batch queue depth (double buf)
     staleness_weight: float = 1.0
     divergence_weight: float = 4.0
     evict_margin: float = 0.5
@@ -93,10 +107,19 @@ class TwinServerConfig(DeadlineConfig):
     max_residency: int = 64
     release_divergence: float = 0.05
     scheduler: str = "bucketed"       # "bucketed": PackedRefitScheduler
+                                      # (one device scoring pass);
+                                      # "reference": the O(n log n)
+                                      # dict-sorting oracle
     flush_pad: int = 8                # chunk-length quantum
     degradation: DegradationConfig = DegradationConfig()
+                                      # deadline-aware shed ladder
+                                      # (twin/recovery.py; disabled default)
     scenario: ScenarioConfig = ScenarioConfig()
+                                      # what-if engine knobs
+                                      # (twin/scenario.py)
     staging_capacity: int | None = None
+                                      # staging-buffer sample bound (None:
+                                      # unbounded)
     ingest_strict: bool = True        # overflow after retries: raise (True)
                                       # or shed oldest staged samples
     ingest_retries: int = 3           # bounded backoff attempts on overflow
@@ -122,45 +145,67 @@ class TickReport:
 
 
 class TorchInitSource:
-    """The server's default source of random model parameters: one CPU
-    `torch.Generator` seeded with `seed`.  `fleet_init()` is called once at
-    construction, `slot_init()` once per admission, in admission order.
+    """The server's default source of random model parameters.
 
-    A test hands the server another object with the same two methods (for
-    instance one that replays the JAX server's draws through
-    repro_torch.convert)."""
+    The init-source protocol: `fleet_init()` is called once at
+    construction, `slot_init()` once per admission, in admission order;
+    `state()` returns a uint32[2] array and `load(state)` resumes from one.
+    The server checkpoints `state()` as its snapshot's "key" leaf, the
+    place (and shape) of the JAX server's PRNG key, so a checkpoint of
+    either package passes the other's shape check.  A test hands the server
+    another object with the same four methods (for instance one that
+    replays the JAX server's draws through repro_torch.convert, whose state
+    is the JAX key itself).
+
+    Here the state is (seed, draws so far): `fleet_init` draws from a CPU
+    `torch.Generator` seeded with `seed`, and admission k (counting from 0)
+    from one seeded with seed * 2^32 + k + 1, so `load` resumes in O(1)
+    with no replay.  A JAX key loaded here is taken the same way: its two
+    words become (seed, draws), which names a reproducible stream of
+    admissions but not the JAX server's own draws.
+    """
 
     def __init__(self, fleet: FleetMerinda, seed: int):
         self.fleet = fleet
-        self.generator = torch.Generator().manual_seed(seed)
+        self.seed = int(seed) & 0xFFFFFFFF
+        self.draws = 0
 
     def fleet_init(self):
-        return self.fleet.init(self.generator)
+        return self.fleet.init(torch.Generator().manual_seed(self.seed))
 
     def slot_init(self):
-        return self.fleet.model.init(self.generator, device="cpu")
+        self.draws += 1
+        gen = torch.Generator().manual_seed((self.seed << 32) + self.draws)
+        return self.fleet.model.init(gen, device="cpu")
+
+    def state(self) -> np.ndarray:
+        return np.asarray([self.seed, self.draws], np.uint32)
+
+    def load(self, state) -> None:
+        self.seed, self.draws = (int(v) for v in np.asarray(state,
+                                                            np.uint32))
 
 
 class TwinServer:
     def __init__(self, cfg: TwinServerConfig, *, device=None,
+                 share_modules_from: "TwinServer | None" = None,
                  init_source=None,
                  metrics: MetricRegistry | None = None,
                  tracer: Tracer | None = None):
         """`device=None` runs on the CUDA card and raises without one;
-        `device="cpu"` runs the plain PyTorch path.  `init_source` supplies
-        random parameters (default: `TorchInitSource(fleet, cfg.seed)`)."""
-        if cfg.async_ingest:
-            raise NotImplementedError("async_ingest (BackgroundPump) is not "
-                                      "ported yet")
-        if cfg.scheduler == "reference":
-            raise NotImplementedError("scheduler='reference' "
-                                      "(RefitScheduler) is not ported yet")
-        if cfg.scheduler != "bucketed":
+        `device="cpu"` runs the plain PyTorch path.  `share_modules_from`
+        reuses another server's ring, fleet, guard and scenario modules
+        (they hold no serving state; the configs must agree on their
+        shapes, and the device is the other server's).  `init_source`
+        supplies random parameters (default: `TorchInitSource(fleet,
+        cfg.seed)`; see its docstring for the protocol)."""
+        if cfg.scheduler not in ("bucketed", "reference"):
             raise ValueError(f"unknown scheduler {cfg.scheduler!r} "
                              "(expected 'bucketed' or 'reference')")
         m = cfg.merinda
         self.cfg = cfg
-        self.device = resolve_device(device)
+        src = share_modules_from
+        self.device = resolve_device(device) if src is None else src.device
         self.metrics = MetricRegistry() if metrics is None else metrics
         self.tracer = Tracer(enabled=False) if tracer is None else tracer
         self.span = TelemetryRing.span(cfg.window, cfg.stride,
@@ -170,16 +215,36 @@ class TwinServer:
             raise ValueError("ring capacity smaller than the refit/guard span")
 
         self._scratch = cfg.max_twins     # scratch ring row + theta row
-        self.ring = TelemetryRing(RingConfig(
-            slots=cfg.max_twins + 1, capacity=cfg.capacity, n=m.n, m=m.m),
-            device=self.device)
-        self.fleet = FleetMerinda(FleetConfig(
-            merinda=m, fleet=cfg.refit_slots,
-            windows_per_twin=cfg.windows_per_twin, lr=cfg.lr,
-            sparsify_after=cfg.sparsify_after), device=self.device)
-        self.guard = DivergenceGuard(self.fleet.model.lib, m.dt, cfg.guard)
-        self.scenario_runner = ScenarioRunner(self.fleet.model.lib, m.dt,
-                                              cfg.scenario)
+        if src is not None:
+            if src.cfg.merinda != m or src.cfg.max_twins != cfg.max_twins \
+                    or src.cfg.refit_slots != cfg.refit_slots \
+                    or src.cfg.capacity != cfg.capacity \
+                    or src.cfg.windows_per_twin != cfg.windows_per_twin \
+                    or src.cfg.lr != cfg.lr \
+                    or src.cfg.sparsify_after != cfg.sparsify_after \
+                    or src.cfg.guard != cfg.guard \
+                    or src.cfg.scenario != cfg.scenario \
+                    or (device is not None
+                        and resolve_device(device) != src.device):
+                raise ValueError("share_modules_from requires identical "
+                                 "module shapes, guard/scenario config and "
+                                 "device (merinda/ring/fleet cfg)")
+            # the ring, fleet, guard and scenario runner hold no serving
+            # state (it is passed to them explicitly)
+            self.ring, self.fleet, self.guard = src.ring, src.fleet, src.guard
+            self.scenario_runner = src.scenario_runner
+        else:
+            self.ring = TelemetryRing(RingConfig(
+                slots=cfg.max_twins + 1, capacity=cfg.capacity, n=m.n,
+                m=m.m), device=self.device)
+            self.fleet = FleetMerinda(FleetConfig(
+                merinda=m, fleet=cfg.refit_slots,
+                windows_per_twin=cfg.windows_per_twin, lr=cfg.lr,
+                sparsify_after=cfg.sparsify_after), device=self.device)
+            self.guard = DivergenceGuard(self.fleet.model.lib, m.dt,
+                                         cfg.guard)
+            self.scenario_runner = ScenarioRunner(self.fleet.model.lib, m.dt,
+                                                  cfg.scenario)
         self._rstate = self.ring.init()
         self._init = (TorchInitSource(self.fleet, cfg.seed)
                       if init_source is None else init_source)
@@ -192,12 +257,17 @@ class TwinServer:
             evict_margin=cfg.evict_margin, min_residency=cfg.min_residency,
             max_residency=cfg.max_residency,
             release_divergence=cfg.release_divergence)
-        self.scheduler = PackedRefitScheduler(
-            sched_cfg, metrics=SchedulerMetrics.create(self.metrics),
-            device=self.device)
+        sched_metrics = SchedulerMetrics.create(self.metrics)
+        if cfg.scheduler == "bucketed":
+            self.scheduler = PackedRefitScheduler(
+                sched_cfg, metrics=sched_metrics, device=self.device)
+        else:
+            self.scheduler = RefitScheduler(sched_cfg, metrics=sched_metrics)
         # packed arrays are the scheduler's truth: every mutation point
-        # below writes BOTH the record and its packed row
+        # below writes BOTH the record and its packed row; the record dict
+        # is the metadata mirror the reference planner reads
         self.packed = PackedFleet(cfg.max_twins)
+        self._max_active: int | None = None   # slot cap (None: all slots)
 
         self._rotation = (None if cfg.guard_budget is None else
                           GuardRotation(cfg.guard_budget,
@@ -229,6 +299,12 @@ class TwinServer:
         self._hist_count = np.zeros((cfg.max_twins + 1,), np.int64)
         self._staging = StagingBuffer(capacity=cfg.staging_capacity)
         self._degradation = DegradationPolicy(cfg.degradation, cfg.deadline_s)
+        # the pump thread does host work only (merge and pad staged
+        # samples); every device copy and scatter stays in _apply, on the
+        # serving thread
+        self._pump = (BackgroundPump(self._prepare_timed,
+                                     depth=cfg.ingest_depth)
+                      if cfg.async_ingest else None)
         self.tick_count = 0
         self._n_deployed = 0
         self.latencies: deque[float] = deque(maxlen=_HISTORY)
@@ -280,6 +356,9 @@ class TwinServer:
         self._m_staging = M.gauge(
             "twin_staging_pending_samples",
             help="samples staged but not yet flushed")
+        self._m_queue = M.gauge(
+            "twin_pump_queue_depth",
+            help="prepared flush batches awaiting the serving tick")
         self._m_degraded = M.gauge(
             "twin_degraded_level",
             help="deadline-degradation ladder level (0 = full service)")
@@ -344,6 +423,11 @@ class TwinServer:
             self.packed.register(row, twin_id)
             return rec
 
+    def twin_snapshot(self) -> dict[int, TwinRecord]:
+        """Registry copy safe to iterate while ingest threads register."""
+        with self._reg_lock:
+            return dict(self.twins)
+
     def _guard_add(self, rec: TwinRecord) -> None:
         """Admit a record to the guard-eligible set (idempotent)."""
         if rec.ring_slot not in self._guard_live:
@@ -352,13 +436,17 @@ class TwinServer:
             self._live_dirty = True
 
     # ------------------------------------------------------------------ #
-    def ingest(self, twin_id: int, y, u=None):
+    def ingest(self, twin_id: int, y, u=None, *, force: bool = False):
         """Stage telemetry for `twin_id`: y [n] or [C, n], u [m] or [C, m].
 
         Host-side staging only — the device scatter happens once per tick.
-        Thread-safe.  A bounded staging buffer (`cfg.staging_capacity`)
-        retries with doubling backoff on overflow, then raises
-        (`ingest_strict`) or sheds the oldest staged samples.
+        Thread-safe: with `async_ingest` many sensor threads may call this
+        concurrently with `tick()` (the staging buffer is the synchronized
+        handoff).  A bounded staging buffer (`cfg.staging_capacity`)
+        retries with doubling backoff on overflow (kicking the pump each
+        try), then raises (`ingest_strict`) or sheds the oldest staged
+        samples.  `force=True` bypasses the bound entirely (crash-recovery
+        replay, twin/recovery.py).
         """
         rec = self.register(twin_id)
         y = np.atleast_2d(np.asarray(y, np.float32))
@@ -369,18 +457,21 @@ class TwinServer:
         if C > self.cfg.capacity:
             raise ValueError("chunk larger than ring capacity")
         try:
-            self._staging.append(rec.ring_slot, y, u)
+            self._staging.append(rec.ring_slot, y, u, force=force)
         except StagingOverflow:
             self._ingest_backpressure(rec.ring_slot, y, u)
+        if self._pump is not None:
+            self._pump.kick()
 
-    def ingest_many(self, batch) -> int:
+    def ingest_many(self, batch, *, force: bool = False) -> int:
         """Batched `ingest`: `batch` iterates (twin_id, y) or (twin_id, y,
-        u) chunks.  Returns the number of SAMPLES staged."""
+        u) chunks.  Returns the number of SAMPLES staged.  Same
+        thread-safety and backpressure contract as `ingest`."""
         staged = 0
         for chunk in batch:
             tid, y = chunk[0], chunk[1]
             u = chunk[2] if len(chunk) > 2 else None
-            self.ingest(tid, y, u)
+            self.ingest(tid, y, u, force=force)
             staged += np.atleast_2d(np.asarray(y)).shape[0]
         return staged
 
@@ -389,6 +480,8 @@ class TwinServer:
         delay = self.cfg.ingest_backoff_s
         for _ in range(max(0, self.cfg.ingest_retries)):
             self._m_ingest_retries.inc()
+            if self._pump is not None:
+                self._pump.kick()      # give the flusher a chance to drain
             time.sleep(delay)
             delay *= 2
             try:
@@ -405,15 +498,19 @@ class TwinServer:
         self._m_ingest_dropped.inc(dropped)
         self._staging.append(row, y, u, force=True)
 
-    # -- staging flush: prepare (host) + apply (device) ------------------ #
+    # -- staging flush: prepare (host, maybe background) + apply (device) - #
     def _prepare_timed(self) -> FlushBatch | None:
+        """Swap the staging buffer and merge/pad it (numpy only), under a
+        span and a latency histogram.  With async ingest this runs on the
+        pump thread, so the span lands on the pump's own trace track."""
         m = self.cfg.merinda
-        t0 = time.perf_counter()
-        batch = prepare_flush(self._staging.swap(),
-                              capacity=self.cfg.capacity,
-                              pad=self.cfg.flush_pad, scratch=self._scratch,
-                              n=m.n, m=m.m)
-        self._m_prepare.observe(time.perf_counter() - t0)
+        with self.tracer.span("pump_flush", cat="ingest"):
+            t0 = time.perf_counter()
+            batch = prepare_flush(self._staging.swap(),
+                                  capacity=self.cfg.capacity,
+                                  pad=self.cfg.flush_pad,
+                                  scratch=self._scratch, n=m.n, m=m.m)
+            self._m_prepare.observe(time.perf_counter() - t0)
         return batch
 
     @property
@@ -437,8 +534,41 @@ class TwinServer:
         return sum(batch.received.values())
 
     def _flush(self) -> int:
+        if self._pump is not None:
+            return sum(self._apply(b) for b in self._pump.drain())
         batch = self._prepare_timed()
         return self._apply(batch) if batch is not None else 0
+
+    def drain(self) -> None:
+        """Barrier: every sample ingested before this call reaches the ring.
+
+        With async ingest, waits for the pump to go idle, applies every
+        prepared batch, then flushes anything still staged inline.  Must be
+        called from the serving (tick) thread — device state is
+        single-threaded by design.
+
+        Guarantee: on return, all samples whose `ingest()` call returned
+        BEFORE `drain()` started are in the ring.  Samples ingested
+        concurrently with the drain may or may not be included (they are
+        never lost — at worst they wait for the next flush).  Busy-waits in
+        0.1 ms sleeps while the pump finishes its in-flight batch; does not
+        block producers.
+        """
+        if self._pump is not None:
+            while not self._pump.idle():
+                for b in self._pump.drain():
+                    self._apply(b)
+                time.sleep(1e-4)
+            for b in self._pump.drain():
+                self._apply(b)
+        batch = self._prepare_timed()
+        if batch is not None:
+            self._apply(batch)
+
+    def close(self) -> None:
+        """Stop the async flush worker (no-op for synchronous servers)."""
+        if self._pump is not None:
+            self._pump.close()
 
     # ------------------------------------------------------------------ #
     def _rows(self, rows) -> torch.Tensor:
@@ -683,8 +813,18 @@ class TwinServer:
                     self._m_shed["guard"].inc()
                 events, n_guarded = self._update_divergence(shed=shed_guard)
             t2 = time.perf_counter()
+            # bucketed: plan straight off the packed arrays (a twin
+            # registered mid-plan is visible only once `registered` flips,
+            # and with 0 samples it cannot be ready).  reference: plan on a
+            # registry snapshot, since async ingest threads may register
+            # twins mid-tick
             with span("schedule"):
-                plan = self.scheduler.plan(self.packed, self._slot_ring)
+                if isinstance(self.scheduler, PackedRefitScheduler):
+                    plan = self.scheduler.plan(self.packed, self._slot_ring,
+                                               max_active=self._max_active)
+                else:
+                    plan = self.scheduler.plan(self.twin_snapshot(),
+                                               max_active=self._max_active)
                 self._apply_plan(plan)
             t3 = time.perf_counter()
             with span("refit"):
@@ -718,6 +858,8 @@ class TwinServer:
         self._m_deployed.set(self._n_deployed)
         self._m_active.set(n_active)
         self._m_staging.set(self._staging.pending_samples())
+        if self._pump is not None:
+            self._m_queue.set(self._pump.queue_depth())
         self._guard_obs.live.set(len(self._guard_live))
         return TickReport(
             tick=self.tick_count, latency_s=latency,
@@ -861,13 +1003,146 @@ class TwinServer:
             out[f"{stage}_ms"] = (hist.sum / n * 1e3) if n else 0.0
         return out
 
+    # -- crash-safe serving state (twin/recovery.py checkpoints) -------- #
     @property
     def degraded_level(self) -> int:
         """Current deadline-degradation ladder level (0 = full service)."""
         return self._degradation.level
 
+    _GUARD_KINDS = ("OK", "REFIT", "ALERT")
+
     def snapshot_state(self) -> dict:
-        raise NotImplementedError("snapshot_state is not ported yet")
+        """Full serving state as a tree of fixed shapes — what a
+        `TwinCheckpointer` writes and `restore_state` consumes.
+
+        The tree is the JAX server's, leaf for leaf (names, shapes, dtypes,
+        pytree order), so either package's checkpoint restores into the
+        other; the "key" leaf is the init source's uint32[2] `state()` (see
+        `TorchInitSource`).  Every leaf's shape is a function of the CONFIG
+        alone, never of runtime occupancy — so a fresh server's snapshot is
+        a valid restore `like` and `checkpoint.restore`'s shape checks
+        catch config drift.  Host arrays are COPIES; device leaves are the
+        server's live tensors, which it updates in place: copy them to the
+        host (`checkpoint.to_host`, as the checkpointer does on this
+        thread) before the server ticks again.
+
+        Serving-thread only.  Excludes the staging buffer/pump (in-flight
+        samples are the telemetry journal's job) and the bounded
+        debug/metric windows.
+        """
+        cap = self.cfg.max_twins
+        refit_slot = np.full((cap,), -1, np.int32)
+        deploy_tick = np.full((cap,), -1, np.int64)
+        admitted_tick = np.full((cap,), -1, np.int64)
+        steps_in_slot = np.zeros((cap,), np.int64)
+        guard_code = np.zeros((cap,), np.int8)
+        guard_live = np.zeros((cap,), bool)
+        kind_code = {k: i for i, k in enumerate(self._GUARD_KINDS)}
+        for rec in self.twin_snapshot().values():
+            row = rec.ring_slot
+            refit_slot[row] = -1 if rec.refit_slot is None else rec.refit_slot
+            deploy_tick[row] = rec.deploy_tick
+            admitted_tick[row] = rec.admitted_tick
+            steps_in_slot[row] = rec.steps_in_slot
+            guard_code[row] = kind_code[
+                self._guard_state.get(rec.twin_id, "OK")]
+        for row in self._guard_live:
+            guard_live[row] = True
+        slot_twin_ids = np.full((self.cfg.refit_slots,), -1, np.int64)
+        for slot, tid in self._slot_twin.items():
+            slot_twin_ids[slot] = tid
+        return {
+            "theta": self._theta,
+            "theta_hist": self._theta_hist,
+            "hist_count": self._hist_count.copy(),
+            "rstate": self._rstate,
+            "fstate": self._fstate,
+            "key": np.asarray(self._init.state(), np.uint32),
+            "packed": self.packed.snapshot(),
+            "rows": {"refit_slot": refit_slot, "deploy_tick": deploy_tick,
+                     "admitted_tick": admitted_tick,
+                     "steps_in_slot": steps_in_slot,
+                     "guard_code": guard_code, "guard_live": guard_live},
+            "slot_ring": self._slot_ring.copy(),
+            "slot_twin_ids": slot_twin_ids,
+            "scalars": np.asarray(
+                [self.tick_count, self._n_deployed,
+                 0 if self._rotation is None else self._rotation._cursor,
+                 -1 if self._max_active is None else self._max_active],
+                np.int64),
+        }
+
+    def _tensor(self, x) -> torch.Tensor:
+        """A restored leaf (numpy array or tensor) on this server's device."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(self.device)
 
     def restore_state(self, state: dict) -> None:
-        raise NotImplementedError("restore_state is not ported yet")
+        """Rebuild this server's serving state from a `snapshot_state`
+        tree — typically `checkpoint.restore`d (numpy leaves) into a fresh
+        server's own snapshot as `like`, from either package.
+
+        In place wherever something aliases the state: the theta store,
+        its history and the ring are `copy_`d into the server's own
+        tensors, and the packed columns are loaded with `[:]`, so `_div`
+        keeps aliasing `packed.divergence`.  The registry (TwinRecord dict,
+        row maps, guard-live set) is rebuilt from the packed columns and
+        the per-row extras.  Serving-thread only; call before any
+        post-restart ingest/tick."""
+        self._theta.copy_(self._tensor(state["theta"]))
+        self._theta_hist.copy_(self._tensor(state["theta_hist"]))
+        self._hist_count[:] = np.asarray(state["hist_count"])
+        for k, v in self._rstate.items():
+            v.copy_(self._tensor(state["rstate"][k]))
+        self._fstate = checkpoint.tree_unflatten(
+            self._fstate, [self._tensor(x) for x in
+                           checkpoint.tree_flatten(state["fstate"])[0]])
+        self._init.load(np.asarray(state["key"]))
+        self.packed.load(state["packed"])
+        self._slot_ring[:] = np.asarray(state["slot_ring"], np.int32)
+        scalars = np.asarray(state["scalars"])
+        self.tick_count = int(scalars[0])
+        self._n_deployed = int(scalars[1])
+        if self._rotation is not None:
+            self._rotation._cursor = int(scalars[2])
+        ma = int(scalars[3])
+        self._max_active = None if ma < 0 else ma
+        rows = state["rows"]
+        refit_slot = np.asarray(rows["refit_slot"])
+        deploy_tick = np.asarray(rows["deploy_tick"])
+        admitted_tick = np.asarray(rows["admitted_tick"])
+        steps_in_slot = np.asarray(rows["steps_in_slot"])
+        guard_code = np.asarray(rows["guard_code"])
+        guard_live = np.asarray(rows["guard_live"])
+        p = self.packed
+        with self._reg_lock:
+            self.twins.clear()
+            self._row2rec.clear()
+            self._guard_state.clear()
+            self._guard_live.clear()
+            self._slot_twin.clear()
+            for row in np.flatnonzero(p.registered):
+                row = int(row)
+                rec = TwinRecord(
+                    twin_id=int(p.twin_id[row]), ring_slot=row,
+                    refit_slot=(None if refit_slot[row] < 0
+                                else int(refit_slot[row])),
+                    samples=int(p.samples[row]),
+                    samples_at_deploy=int(p.samples_at_deploy[row]),
+                    deployed=bool(p.deployed[row]),
+                    deploy_tick=int(deploy_tick[row]),
+                    admitted_tick=int(admitted_tick[row]),
+                    residency=int(p.residency[row]),
+                    steps_in_slot=int(steps_in_slot[row]),
+                    divergence=float(p.divergence[row]))
+                self.twins[rec.twin_id] = rec
+                self._row2rec[row] = rec
+                self._guard_state[rec.twin_id] = \
+                    self._GUARD_KINDS[int(guard_code[row])]
+                if guard_live[row]:
+                    self._guard_live[row] = rec
+            for slot, tid in enumerate(np.asarray(state["slot_twin_ids"])):
+                if tid >= 0:
+                    self._slot_twin[slot] = int(tid)
+        self._live_dirty = True

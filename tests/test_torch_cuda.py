@@ -12,7 +12,12 @@ one instance, a fleet of 2048, n = 1 without inputs, L past two term
 groups and orders above 4.  Offline recovery's shapes: the GRU at input
 widths 2 and 3 (hidden 64) and at F-8's recover (776 windows, hidden
 96); RK4 at every registered system's (n, m, order) and over one
-6,000-step F-8 simulation (each trace within 1e-4 of its envelope).  Tolerances: forward GRU 1e-5 absolute and RK4
+6,000-step F-8 simulation (each trace within 1e-4 of its envelope).  The
+kernels' wide paths: RK4 at F8Crusader(n_aircraft=6, 11, 12) (n = 18, 33,
+36 states past the warp path's 16; Theta staged, read through L2, and Phi
+in two chunks) and at 1 + n + m = 35, the GRU at H = 137, 160, 256 and
+1100 past the fast paths' 136, and at that edge (H = 136) at D = 4 and
+16.  Tolerances: forward GRU 1e-5 absolute and RK4
 rtol 1e-4 / atol 1e-5 (fp32 sums in another order than the plain version);
 gradients rtol 1e-4 / atol 1e-5 (the backward replays the plain version on
 the saved inputs).  The linear scan (RWKV-6 prefill: H=40, K=V=64, chunk
@@ -33,7 +38,7 @@ from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
 from repro_torch.kernels.rk4.ops import rk4_poly_solve
 from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
 from repro_torch.systems.f8_crusader import F8Crusader
-from repro_torch.systems.simulate import register_systems, simulate_from
+from repro_torch.systems.simulate import register_systems
 
 GRAD = dict(rtol=1e-4, atol=1e-5)
 
@@ -215,15 +220,86 @@ def test_rk4_kernel_over_a_simulation(cuda):
 
 
 @pytest.mark.cuda
-def test_rk4_kernel_refuses_more_than_16_states(cuda):
-    """F8Crusader(n_aircraft=6) has 18 states, past the kernel's 16 (one
-    warp holds [1, Y, U]): the card raises, it never falls back to the
-    plain version (ROADMAP, open kernel work)."""
+@pytest.mark.parametrize("k,T", [(6, 300), (11, 300), (12, 20)])
+def test_rk4_kernel_wide_path_f8_stacks(cuda, k, T):
+    """F8Crusader(n_aircraft=k) stacks k airframes: n = 3k states and one
+    shared input, past the warp path's 16 states.  The wide path (a block
+    an instance) runs it: k = 6 (L = 1,540) with Theta staged in shared
+    memory, k = 11 (L = 7,770) reading Theta through L2, k = 12 (L =
+    9,880) in two Phi chunks.  B = 2, forward and gradients, at the
+    tolerances of every other system."""
+    system = F8Crusader(n_aircraft=k)
+    lib = system.library()
+    gen = torch.Generator().manual_seed(k)
+    true = torch.as_tensor(system.true_theta(lib), dtype=torch.float32)
+    arrays = (true * (1 + 0.05 * torch.randn((2,) + true.shape,
+                                             generator=gen)),
+              system.sample_y0(gen, (2,)),
+              system.sample_inputs(gen, T, (2,)).movedim(0, 1))
+    args = [a.to(cuda).requires_grad_() for a in arrays]
+    ref_args = [a.to(cuda).requires_grad_() for a in arrays]
     before = rk4_poly_solve.launches
-    with pytest.raises(ValueError, match="exceed the kernel's limits"):
-        simulate_from(F8Crusader(n_aircraft=6), torch.zeros(2, 18),
-                      torch.zeros(2, 3, 1), device=cuda)
-    assert rk4_poly_solve.launches == before
+    outs, grads = _grads(
+        lambda *a: rk4_poly_solve(*a, dt=system.spec.dt, library=lib), args)
+    torch.cuda.synchronize()
+    assert rk4_poly_solve.launches == before + 1
+    assert outs[0].shape == (2, T + 1, 3 * k)
+    assert torch.isfinite(outs[0]).all()
+    ref_outs, ref_grads = _grads(
+        lambda *a: rk4_poly_solve_ref(*a, system.spec.dt,
+                                      lib.indices_on(cuda)), ref_args)
+    torch.testing.assert_close(outs[0], ref_outs[0], rtol=1e-4, atol=1e-5)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, **GRAD)
+
+
+@pytest.mark.cuda
+def test_rk4_kernel_wide_path_many_inputs(cuda):
+    """1 + n + m > 32 with n <= 16 (n = 4, m = 30) also takes the wide
+    path; order 2, 61 instances, forward and gradients."""
+    lib = make_library(4, 30, 2)
+    rng = np.random.default_rng(30)
+    arrays = (0.05 * rng.normal(size=(61, 4, lib.size)),
+              0.1 * rng.normal(size=(61, 4)),
+              0.1 * rng.normal(size=(61, 24, 30)))
+    args, ref_args = _on(cuda, *arrays), _on(cuda, *arrays)
+    outs, grads = _grads(
+        lambda *a: rk4_poly_solve(*a, dt=0.01, library=lib), args)
+    ref_outs, ref_grads = _grads(
+        lambda *a: rk4_poly_solve_ref(*a, 0.01, lib.indices_on(cuda)),
+        ref_args)
+    torch.testing.assert_close(outs[0], ref_outs[0], rtol=1e-4, atol=1e-5)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, **GRAD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H,F,B", [(4, 136, 2, 5), (4, 137, 2, 5),
+                                     (4, 160, 8, 8), (4, 256, 8, 8),
+                                     (16, 136, 2, 5), (16, 137, 2, 5),
+                                     (4, 1100, 1, 3)])
+def test_gru_kernel_wide_path(cuda, D, H, F, B):
+    """Hidden widths past the fast paths' 136 (Wh no longer fits a block's
+    shared memory beside the prologue) take the wide path: Wh read through
+    L2, up to 1024 threads a sequence, several units a thread past H =
+    1024.  H = 136 is the fast paths' edge at D = 4 and at D = 16; per-slot
+    weights, T = 24, forward and gradients."""
+    rng = np.random.default_rng((D, H, F, B))
+    s = 0.18 * (32 / H) ** 0.5
+    arrays = (rng.normal(size=(F, B, 24, D)), 0.1 * rng.normal(size=(F, B, H)),
+              rng.uniform(-0.5, 0.5, (F, D, 3 * H)),
+              rng.uniform(-s, s, (F, H, 3 * H)),
+              0.1 * rng.normal(size=(F, 3 * H)))
+    args, ref_args = _on(cuda, *arrays), _on(cuda, *arrays)
+    before = gru_scan.launches
+    outs, grads = _grads(gru_scan, args)
+    torch.cuda.synchronize()
+    assert gru_scan.launches == before + 1
+    ref_outs, ref_grads = _grads(gru_scan_ref, ref_args)
+    for o, r in zip(outs, ref_outs):
+        torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, **GRAD)
 
 
 def _scan_inputs(dev, B, H, T, K, V, dtype, seed, strong=False):

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,6 +34,10 @@ def test_every_module_imports_without_jax():
                                "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     assert len(_modules()) > 20
+    # the crash-safety slice's modules are among them
+    assert {"repro_torch.train.checkpoint", "repro_torch.twin.recovery",
+            "repro_torch.data.pipeline",
+            "repro_torch.distributed.fault_tolerance"} <= set(_modules())
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -101,6 +106,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.twin.scheduler import (PackedRefitScheduler,
                                             SchedulerConfig)
     from repro_torch.twin.stream import RingConfig, TelemetryRing
+    # the reference planner, the checkpointer and the journal are host
+    # code: they run without a card
+    from repro_torch.twin.recovery import TelemetryJournal
+    from repro_torch.twin.scheduler import RefitScheduler
+    RefitScheduler(SchedulerConfig(slots=2, min_samples=4)).plan({})
+    TelemetryJournal(horizon=8).append(0, np.zeros((2, 3), np.float32))
     ring_cfg = RingConfig(slots=2, capacity=16, n=3, m=1)
     sched_cfg = SchedulerConfig(slots=2, min_samples=4)
     packed = PackedFleet(4)
@@ -112,6 +123,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                                                  **d),
         "fleet_scores": lambda **d: fleet_scores(packed, k=2, **score, **d),
         "fleet_pressure": lambda **d: fleet_pressure(packed, **score, **d),
+        "PackedRefitScheduler.plan_records": lambda **d: PackedRefitScheduler(
+            sched_cfg, **d).plan_records({}),
         "simulate": lambda **d: simulate(F8Crusader(), gen, horizon=2, **d),
         "simulate_batch": lambda **d: simulate_batch(F8Crusader(), gen, 2,
                                                      horizon=2, **d),

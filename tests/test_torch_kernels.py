@@ -17,6 +17,7 @@ import torch
 from repro.core.library import make_library as jax_make_library
 from repro.kernels.gru.ops import gru_scan as jax_gru_scan
 from repro.kernels.rk4.ops import rk4_poly_solve as jax_rk4
+from repro.systems.f8_crusader import F8Crusader as JaxF8
 from repro_torch.core.library import make_library
 from repro_torch.kernels.gru.ops import gru_scan
 from repro_torch.kernels.gru.ref import gru_scan_ref
@@ -97,6 +98,19 @@ def test_gru_forward_and_grad_match_jax(backend, case):
         np.testing.assert_allclose(a, b, err_msg=name, **GRAD)
 
 
+def test_gru_wide_hidden_matches_jax():
+    """H = 256, past the CUDA kernel's fast paths (136): the plain version
+    the wide path is held to on the card agrees with JAX's reference,
+    forward and gradients."""
+    inp = _gru_inputs(256, (3, 10), 4, 256)
+    hs_j, hT_j, g_j = _jax_gru(inp, False, JAX_BACKENDS["jnp"])
+    hs_t, hT_t, g_t = _torch_gru(inp)
+    np.testing.assert_allclose(hs_t, hs_j, **FWD)
+    np.testing.assert_allclose(hT_t, hT_j, **FWD)
+    for name, a, b in zip(_ARGS, g_t, g_j):
+        np.testing.assert_allclose(a, b, err_msg=name, **GRAD)
+
+
 def test_gru_shape_guards_raise():
     inp = _gru_inputs(3, (2, 7), 4, 8)
     with pytest.raises(ValueError, match="inconsistent"):
@@ -141,6 +155,37 @@ def test_rk4_forward_and_grad_match_jax(backend, n, m, order):
     ys_t = rk4_poly_solve(*targs, dt=0.02, library=lib)
     torch.mean(ys_t ** 2).backward()
     assert ys_t.shape == ys_j.shape == lead + (9, n)
+    np.testing.assert_allclose(ys_t.detach().numpy(), ys_j, **FWD)
+    for name, a, b in zip(names, targs, g_j):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b),
+                                   err_msg=name, rtol=1e-4, atol=1e-6)
+
+
+def test_rk4_f8_stack_matches_jax():
+    """F8Crusader(n_aircraft=6): n = 18 states, one input, L = 1,540 terms
+    at order 3, past the CUDA warp path's 16 states.  The plain version
+    (forward, and the backward the card replays) against JAX's reference
+    on JAX's own system: its true theta perturbed, y0 and inputs near
+    trim, 20 steps."""
+    system = JaxF8(n_aircraft=6)
+    jlib = system.library()
+    lib = make_library(18, 1, 3)
+    assert lib.size == jlib.size == 1540
+    rng = np.random.default_rng(18)
+    true = np.asarray(system.true_theta(jlib), np.float32)
+    inp = {"theta": (true * (1 + 0.05 * rng.normal(size=(2,) + true.shape))
+                     ).astype(np.float32),
+           "y0": rng.uniform(-0.05, 0.05, (2, 18)).astype(np.float32),
+           "us": (0.03 * rng.normal(size=(2, 20, 1))).astype(np.float32)}
+    names = ("theta", "y0", "us")
+    jargs = [jnp.asarray(inp[k]) for k in names]
+    ys_j = np.asarray(jax_rk4(*jargs, dt=0.01, library=jlib))
+    g_j = jax.grad(lambda *a: jnp.mean(jax_rk4(*a, dt=0.01, library=jlib)
+                                       ** 2), argnums=(0, 1, 2))(*jargs)
+    targs = [_t(inp[k], grad=True) for k in names]
+    ys_t = rk4_poly_solve(*targs, dt=0.01, library=lib)
+    torch.mean(ys_t ** 2).backward()
+    assert ys_t.shape == (2, 21, 18)
     np.testing.assert_allclose(ys_t.detach().numpy(), ys_j, **FWD)
     for name, a, b in zip(names, targs, g_j):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(b),

@@ -378,17 +378,3 @@ def test_staging_overflow_matches_jax(strict):
         np.testing.assert_array_equal(tsrv._rstate[key].numpy(),
                                       np.asarray(jsrv._rstate[key]))
 
-
-def test_server_deferred_features_raise():
-    cfg = TwinServerConfig(merinda=MerindaConfig(n=2, m=1, hidden=8,
-                                                 head_hidden=8),
-                           max_twins=4, capacity=64, window=8, stride=4,
-                           windows_per_twin=2, guard=GuardConfig(window=8))
-    for kw in (dict(async_ingest=True), dict(scheduler="reference")):
-        with pytest.raises(NotImplementedError):
-            TwinServer(cfg.__class__(**{**cfg.__dict__, **kw}), device="cpu")
-    srv = TwinServer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        srv.snapshot_state()
-    with pytest.raises(NotImplementedError):
-        srv.restore_state({})
