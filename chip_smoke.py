@@ -51,6 +51,33 @@ each of which raises on failure (the script then exits nonzero):
              hidden 96 (examples/train_f8_crusader.py), its polished
              recovery and MSE, its first 10 steps replayed on the CPU; the
              offline fleet of 16 twins (examples/fleet_twinning.py);
+  9. fleet   (run before 8, whose kernel line reads every path's launches)
+             the sharded and federated servers on the card, at the widths
+             of the JAX package's example and benchmarks, uncut:
+             conformance -- tests/test_service_conformance.py's scenario
+             (8 Lotka-Volterra twins, guard-only, twins 2 and 5 damaged)
+             on TwinServer, ShardedTwinServer (2 shards) and
+             FederatedTwinServer (2 workers), event streams identical;
+             sharded -- examples/sharded_fleet.py (F-8, Van der Pol and
+             Lotka-Volterra, 384 each, one shard a family, 12 slots in
+             all, 16 damaged F-8s, 40 ticks, 20 warm-up; every damaged
+             F-8 flagged), then 8 ticks with synchronous ingest card
+             against CPU (grants, plans, losses); scale --
+             benchmarks/online_scale.py's quick headline points (1,000
+             and 10,000 F-8 twins on 4 shards, 18 + 10 ticks; the guard-ms
+             ratio printed, not gated); federated --
+             benchmarks/online_federated.py's quick preset (10,000 twins
+             in 4 worker processes, each with its own CUDA context;
+             1,000 in 2 through the TCP front door; the kill row: 1,000
+             twins in 4 workers, the last killed at tick 22, restarted
+             after 1 tick from its checkpoint and the journal: 0 samples
+             lost, its grant to the survivors while down, its pressure EMA
+             held).  Any shard or worker death the chaos schedule did not
+             order fails the phase.  Workers prove they ran on the card by
+             their own launch counters (read over the wire) and by
+             nvidia-smi's compute processes (where nvidia-smi sees
+             another pid namespace it names every process pid 1, and
+             their count stands in);
   8. time    each kernel and its plain version at every serving and
              offline shape (GRU: the online tick's refit, the offline
              fleet's, F-8 training's and recovery's, Table I's
@@ -60,10 +87,12 @@ each of which raises on failure (the script then exits nonzero):
              three launches apart.
 
 Kernel launch counts are set to 0 just before each path (tick, predict,
-scenario, the crash-safety runs, LM prefill, LM decode, and the offline
-ones: simulate, each Table I fit and its scoring, F-8 training and
-recovery, the fleet) and read just after it; a path that launches none of its kernels, or one it does not
-run, fails.
+scenario, the crash-safety runs, LM prefill, LM decode, the offline ones:
+simulate, each Table I fit and its scoring, F-8 training and recovery,
+the offline fleet; and phase 9's in-process runs) and read just after it;
+a path that launches none of its kernels, or one it does not run, fails.
+A federated run's coordinator must launch nothing; its workers' counts
+are read from them before and after the run ("<path>_workers").
 
 The last three lines of output are the kernel JSON line, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.  Without a CUDA
@@ -135,7 +164,19 @@ PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
                 "crash_replay": ("gru_scan", "rk4_poly"),
                 "crash_torn": ("gru_scan", "rk4_poly"),
                 "reference_planner": ("gru_scan", "rk4_poly"),
-                "async_ingest": ("gru_scan", "rk4_poly")}
+                "async_ingest": ("gru_scan", "rk4_poly"),
+                # the fleet: every shard ticks in this process; a federated
+                # run's coordinator launches nothing (its workers do, and
+                # report their launches as "<path>_workers")
+                "conformance_single": ("gru_scan", "rk4_poly"),
+                "conformance_sharded": ("gru_scan", "rk4_poly"),
+                "conformance_federated": (),
+                "fleet_sharded": ("gru_scan", "rk4_poly"),
+                "fleet_parity": ("gru_scan", "rk4_poly"),
+                "scale_1k": ("gru_scan", "rk4_poly"),
+                "scale_10k": ("gru_scan", "rk4_poly"),
+                "federated_10k": (), "federated_tcp": (),
+                "federated_kill": ()}
 # the offline phase, cut to its budget (about 3 minutes on the card):
 # Table I's quick protocol (benchmarks/table1_accuracy.py: 400 steps, two
 # seeds, four systems) at 200 steps, one seed, F-8 and Lotka-Volterra;
@@ -155,6 +196,26 @@ SIM_REL_DEFAULT = 1e-4
 # version in float32 against float64 fails it at entries near 0); phase 2
 # prints that yardstick's envelope share beside the kernel's
 WIDE_GRAD_REL = 1e-4
+# phase 9, the fleet.  Conformance: tests/test_service_conformance.py's
+# scenario (8 Lotka-Volterra twins, guard-only; healthy, damaged and
+# recovering ticks).  The sharded fleet: examples/sharded_fleet.py's
+# defaults (3 families x 384, 16 damaged F-8s, 40 ticks, 20 warm-up), then
+# 8 ticks card against CPU.  Scale: benchmarks/online_scale.py's quick
+# headline points (4 shards, 18 warm-up + 10 measured ticks, guard budget
+# 128).  Federation: benchmarks/online_federated.py's quick preset (10,000
+# twins in 4 workers; 1,000 in 2 through the TCP front door; the kill row,
+# 1,000 twins in 4 workers, 12 measured ticks)
+CONF_TWINS, CONF_DAMAGED, CONF_PER_TICK, CONF_TICKS = 8, (2, 5), 10, \
+    (4, 6, 6)
+FLEET_PER_FAMILY, FLEET_DAMAGED, FLEET_TICKS, FLEET_WARMUP = 384, 16, 40, 20
+FLEET_PARITY_TICKS = 8
+SCALE_TWINS, SCALE_SHARDS, SCALE_WARMUP, SCALE_TICKS = (1_000, 10_000), 4, \
+    18, 10
+SCALE_GUARD_BUDGET = 128
+FED_TWINS, FED_WORKERS, FED_TCP = 10_000, 4, (1_000, 2)
+KILL_TWINS, KILL_WORKERS, KILL_TICKS = 1_000, 4, 12
+FLEET_CKPT_DIR = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_fleet_ckpt"
 
 
 def _server_config():
@@ -1640,6 +1701,606 @@ def offline(dev, paths):
 
 
 # --------------------------------------------------------------------------- #
+# phase 9, the fleet: TwinService conformance, the sharded fleet, scale,
+# federation
+# --------------------------------------------------------------------------- #
+def _nvidia_smi(*query) -> list[list[str]]:
+    out = subprocess.run(["nvidia-smi", *query, "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    return [[x.strip() for x in line.split(",")]
+            for line in out.splitlines() if line.strip()]
+
+
+def _check_no_deaths(name, reports, allowed=()):
+    """Fail on any shard or worker death the chaos schedule did not order:
+    `allowed` holds the report indices where the planned one may show."""
+    for k, r in enumerate(reports):
+        if k in allowed:
+            continue
+        if r.dead_shards or r.restarted:
+            raise RuntimeError(f"{name}: unplanned death at tick {r.tick} "
+                               f"({r.dead_shards} down, restarted "
+                               f"{r.restarted})")
+
+
+def _fleet_summary(name, srv, paths, path, smi, workers=None):
+    """One line a fleet run: tick p50/p99, violations, refreshes/s and the
+    per-stage ms (registry histograms), the path's launches (a federated
+    run's: its workers'), the card."""
+    lat, st = srv.latency_summary(), srv.stage_summary()
+    counts = paths[workers or path]
+    print(f"  {name}: tick p50 {lat['p50_ms']:.2f} ms, p99 "
+          f"{lat['p99_ms']:.2f} ms ({lat['ticks']} ticks), violations "
+          f"{lat['violations']}, {lat['twin_refreshes_per_s']:.1f} twin "
+          f"refreshes/s; stages " + ", ".join(
+              f"{k} {v:.2f}" for k, v in st.items())
+          + f"; launches gru_scan {counts['gru_scan']}, rk4_poly "
+          f"{counts['rk4_poly']}{' (workers)' if workers else ''} [{smi}]")
+    return lat, st
+
+
+def _worker_launches(paths, path, before, after):
+    """The kernels' launches the workers made between two
+    `worker_processes()` reads, recorded as the path's; both kernels must
+    have run in every worker."""
+    total = paths.setdefault(path, dict(gru_scan=0, rk4_poly=0,
+                                        linear_scan=0))
+    for b, a in zip(before, after):
+        d = {k: int(a[f"{k}_launches"] - b[f"{k}_launches"])
+             for k in ("gru_scan", "rk4_poly")}
+        if not a["device"].startswith("cuda") or min(d.values()) <= 0:
+            raise RuntimeError(f"{path}: worker pid {int(a['pid'])} on "
+                               f"{a['device']} launched {d}")
+        for k, v in d.items():
+            total[k] += v
+    print(f"kernel launches on the {path} path: {total}")
+
+
+def _workers_on_card(srv, name):
+    """Each worker serves on the card: it reports a CUDA device, and
+    nvidia-smi lists a compute process for it beside this one.  An
+    nvidia-smi outside this process's pid namespace names every process
+    pid 1; then the count of listed processes stands in for the pids.
+    Returns what each worker reported."""
+    procs = srv.worker_processes()
+    apps = _nvidia_smi("--query-compute-apps=pid,used_memory")
+    pids = [int(p["pid"]) for p in procs]
+    seen = {int(a[0]) for a in apps if a[0].isdigit()}
+    if set(pids) <= seen:
+        how = "every worker pid listed"
+    elif len(apps) >= len(pids) + 1:
+        how = (f"pids not visible (nvidia-smi lists {sorted(seen)}); "
+               f"{len(apps)} compute processes for {len(pids)} workers + "
+               "this one")
+    else:
+        raise RuntimeError(f"{name}: nvidia-smi lists {apps} for worker "
+                           f"pids {pids}")
+    if not all(p["device"].startswith("cuda") for p in procs):
+        raise RuntimeError(f"{name}: a worker is not on the card: {procs}")
+    print(f"  {name}: workers {pids} on " + ", ".join(
+        sorted({p['device'] for p in procs})) + f"; {how}; nvidia-smi used "
+        f"memory {[a[1] for a in apps]}; torch allocated per worker "
+        f"{[round(p['memory_allocated'] / 2**20, 1) for p in procs]} MiB "
+        f"(peak {[round(p['max_memory_allocated'] / 2**20, 1) for p in procs]})")
+    return procs
+
+
+def _boot_line(srv) -> str:
+    h = srv._m_boot
+    return (f"worker boot {h.count} x mean {h.sum / max(h.count, 1):.2f} s, "
+            f"max {h.max:.2f} s")
+
+
+# -- 1. conformance ---------------------------------------------------------- #
+def _conformance_cfg(dt):
+    from repro_torch.core.merinda import MerindaConfig
+    from repro_torch.twin.monitor import GuardConfig
+    from repro_torch.twin.server import TwinServerConfig
+    return TwinServerConfig(
+        merinda=MerindaConfig(n=2, m=0, order=2, hidden=8, head_hidden=8,
+                              n_active=4, dt=dt),
+        max_twins=CONF_TWINS, refit_slots=2, capacity=128, window=16,
+        stride=8, windows_per_twin=4, steps_per_tick=1, deploy_after=10 ** 6,
+        min_residency=1, guard=GuardConfig(window=16))
+
+
+def _conformance_run(srv, ys, true):
+    """tests/test_service_conformance.py's scenario: healthy, damaged
+    (negated theta on CONF_DAMAGED), repaired; per tick the events and the
+    per-shard losses."""
+    for tid in range(CONF_TWINS):
+        srv.register(tid)
+    srv.deploy_many(list(range(CONF_TWINS)), np.stack([true] * CONF_TWINS))
+    damaged = list(CONF_DAMAGED)
+    out, tick = [], 0
+    for phase, n_ticks in enumerate(CONF_TICKS):
+        if phase:
+            theta = -true if phase == 1 else true
+            srv.deploy_many(damaged, np.stack([theta] * len(damaged)))
+        for _ in range(n_ticks):
+            lo = tick * CONF_PER_TICK
+            srv.ingest_many([(tid, ys[tid, lo:lo + CONF_PER_TICK])
+                             for tid in range(CONF_TWINS)])
+            out.append(srv.tick())
+            tick += 1
+    srv.drain()
+    return out
+
+
+def fleet_conformance(paths, smi):
+    """The conformance scenario on the port's TwinServer, ShardedTwinServer
+    (2 shards) and FederatedTwinServer (2 workers), all on the card: the
+    three guard-event streams identical ((tick, twin, kind) exactly, scores
+    within 1e-6), the sharded and federated losses too."""
+    from repro_torch.systems.lotka_volterra import LotkaVolterra
+    from repro_torch.systems.simulate import simulate_batch
+    from repro_torch.twin import (FederatedTwinConfig, FederatedTwinServer,
+                                  ShardedTwinConfig, ShardedTwinServer,
+                                  TwinServer)
+    system = LotkaVolterra()
+    ys = simulate_batch(system, torch.Generator().manual_seed(0), CONF_TWINS,
+                        horizon=400, noise_std=0.002,
+                        device="cpu").ys_noisy.numpy()
+    true = np.asarray(system.true_theta(system.library()), np.float32)
+    cfg = _conformance_cfg(system.spec.dt)
+    runs = {}
+    for impl in ("single", "sharded", "federated"):
+        srv = (TwinServer(cfg) if impl == "single" else
+               ShardedTwinServer(ShardedTwinConfig.uniform(cfg, 2))
+               if impl == "sharded" else
+               FederatedTwinServer(FederatedTwinConfig.uniform(cfg, 2)))
+        try:
+            before = (srv.worker_processes() if impl == "federated"
+                      else None)
+            runs[impl] = counted(paths, f"conformance_{impl}",
+                                 lambda: _conformance_run(srv, ys, true),
+                                 quiet=True)
+            if impl == "federated":
+                _worker_launches(paths, "conformance_federated_workers",
+                                 before, srv.worker_processes())
+            if impl != "single":
+                _check_no_deaths(f"conformance {impl}", runs[impl])
+        finally:
+            srv.close()
+    keyed = {k: sorted((e.tick, e.twin_id, e.kind, e.score)
+                       for r in v for e in r.events)
+             for k, v in runs.items()}
+    ref = keyed["single"]
+    if {e[1] for e in ref if e[2] == "ALERT"} != set(CONF_DAMAGED):
+        raise RuntimeError(f"conformance: ALERTs {ref}, damaged "
+                           f"{CONF_DAMAGED}")
+    for impl in ("sharded", "federated"):
+        got = keyed[impl]
+        if [e[:3] for e in got] != [e[:3] for e in ref] or not np.allclose(
+                [e[3] for e in got], [e[3] for e in ref], rtol=1e-6,
+                atol=0.0):
+            raise RuntimeError(f"conformance: {impl} events {got} != "
+                               f"single {ref}")
+    for a, b in zip(runs["sharded"], runs["federated"]):
+        la = [r.loss for r in a.reports]
+        lb = [r.loss for r in b.reports]
+        if [x is None for x in la] != [x is None for x in lb] or \
+                not np.allclose([x for x in la if x is not None],
+                                [x for x in lb if x is not None],
+                                rtol=1e-6, atol=0.0):
+            raise RuntimeError(f"conformance tick {a.tick}: sharded losses "
+                               f"{la}, federated {lb}")
+    n_loss = sum(r.loss is not None for t in runs["sharded"]
+                 for r in t.reports)
+    print(f"  conformance: {len(ref)} guard events identical across the "
+          f"single, sharded and federated servers ((tick, twin, kind) "
+          f"exact, scores within 1e-6); sharded and federated losses equal "
+          f"at {n_loss} shard-ticks [{smi}]")
+
+
+# -- 2. the sharded fleet (examples/sharded_fleet.py) ------------------------ #
+def _families():
+    from repro_torch.systems.lotka_volterra import LotkaVolterra
+    from repro_torch.systems.van_der_pol import VanDerPol
+    nominal, _ = _systems()
+    return [("f8", nominal, 24), ("vdp", VanDerPol(), 12),
+            ("lv", LotkaVolterra(), 6)]
+
+
+def _family_cfg(system, n_active, seed, async_ingest=True):
+    """examples/sharded_fleet.py's `family_cfg`, uncut."""
+    from repro_torch.core.merinda import MerindaConfig
+    from repro_torch.twin.monitor import GuardConfig
+    from repro_torch.twin.server import TwinServerConfig
+    s = system.spec
+    return TwinServerConfig(
+        merinda=MerindaConfig(n=s.n, m=s.m, order=s.order, dt=s.dt,
+                              hidden=16, head_hidden=16, n_active=n_active),
+        max_twins=4096, refit_slots=8, capacity=64, window=16, stride=8,
+        windows_per_twin=4, steps_per_tick=1, sparsify_after=30,
+        deploy_after=8, min_residency=4, max_residency=16,
+        guard=GuardConfig(window=24), guard_budget=96,
+        async_ingest=async_ingest, seed=seed)
+
+
+def _fleet_telemetry(dev):
+    """One simulated batch of FLEET_PER_FAMILY a family; the first
+    FLEET_DAMAGED F-8s fly DamagedF8 dynamics."""
+    from repro_torch.systems.simulate import simulate_batch
+    _, damaged = _systems()
+    horizon = CHUNK * FLEET_TICKS + 1
+    out = []
+    for i, (_, system, _) in enumerate(_families()):
+        tr = simulate_batch(system, torch.Generator().manual_seed(i),
+                            FLEET_PER_FAMILY, horizon=horizon,
+                            noise_std=0.002, device=dev)
+        out.append([tr.ys_noisy.cpu().numpy(), tr.us.cpu().numpy()])
+    tr = simulate_batch(damaged, torch.Generator().manual_seed(100),
+                        FLEET_DAMAGED, horizon=horizon, noise_std=0.002,
+                        device=dev)
+    out[0][0][:FLEET_DAMAGED] = tr.ys_noisy.cpu().numpy()
+    out[0][1][:FLEET_DAMAGED] = tr.us.cpu().numpy()
+    for ys, us in out:
+        if not (np.isfinite(ys).all() and np.isfinite(us).all()):
+            raise RuntimeError("fleet telemetry is not finite")
+    return out
+
+
+def _fleet_server(device, async_ingest=True):
+    """examples/sharded_fleet.py's server: one shard a family, a global
+    budget of 12 slots, every twin warm-started with its family's true
+    theta."""
+    from repro_torch.twin import ShardedTwinConfig, ShardedTwinServer
+    fams = _families()
+    srv = ShardedTwinServer(ShardedTwinConfig(
+        servers=tuple(_family_cfg(system, n_active, i, async_ingest)
+                      for i, (_, system, n_active) in enumerate(fams)),
+        total_slots=12, min_shard_slots=1, rebalance_every=4,
+        pressure_smooth=0.5), device=device)
+    nf = FLEET_PER_FAMILY
+    for i, (_, system, _) in enumerate(fams):
+        ids = [i * nf + k for k in range(nf)]
+        for tid in ids:
+            srv.register(tid, shard=i)
+        srv.deploy_many(ids, system.true_theta(srv.shards[i].fleet.model.lib))
+    return srv
+
+
+def _fleet_tick(srv, telemetry, t):
+    lo, nf = t * CHUNK, FLEET_PER_FAMILY
+    for i, (ys, us) in enumerate(telemetry):
+        srv.ingest_many([(i * nf + k, ys[k, lo:lo + CHUNK],
+                          us[k, lo:lo + CHUNK]) for k in range(nf)])
+    return srv.tick()
+
+
+def fleet_sharded(dev, paths, smi):
+    """examples/sharded_fleet.py at its default width, uncut, on the card:
+    the flagged set must hold every damaged F-8.  Then its first
+    FLEET_PARITY_TICKS ticks again with synchronous ingest on the card and
+    on the CPU: grants and admissions equal tick by tick, losses within
+    rtol 1e-3 / atol 1e-4."""
+    telemetry = _fleet_telemetry(dev)
+
+    def run():
+        srv = _fleet_server(None)
+        reports = []
+        try:
+            for t in range(FLEET_TICKS):
+                reports.append(_fleet_tick(srv, telemetry, t))
+                if reports[-1].tick == FLEET_WARMUP:
+                    srv.reset_latency_stats()
+            srv.drain()
+        finally:
+            srv.close()
+        return srv, reports
+
+    srv, reports = counted(paths, "fleet_sharded", run, quiet=True)
+    _check_no_deaths("sharded fleet", reports)
+    path = [(r.tick, r.grants) for k, r in enumerate(reports)
+            if k == 0 or r.grants != reports[k - 1].grants]
+    print(f"  sharded fleet: grants (f8/vdp/lv) by tick {path}; final "
+          f"pressures {[round(p, 2) for p in srv.federation.pressures]}")
+    flagged = {e.twin_id for r in reports for e in r.events}
+    caught = sorted(flagged & set(range(FLEET_DAMAGED)))
+    print(f"  sharded fleet: flagged {len(flagged)} twins, {len(caught)}/"
+          f"{FLEET_DAMAGED} true damaged among them")
+    if len(caught) != FLEET_DAMAGED:
+        raise RuntimeError(f"sharded fleet: damaged F-8s flagged {caught}")
+    losses = [r.loss for t in reports for r in t.reports
+              if r.loss is not None]
+    if not losses or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"sharded fleet: refit losses {losses[:8]}")
+    pred = srv.predict(0, 50)
+    if pred.shape != (51, 3) or not torch.isfinite(pred).all():
+        raise RuntimeError(f"sharded fleet: prediction {tuple(pred.shape)}")
+    lat, _ = _fleet_summary(f"sharded fleet, {3 * FLEET_PER_FAMILY} twins "
+                            f"on 3 shards, ticks {FLEET_WARMUP + 1}-"
+                            f"{FLEET_TICKS}", srv, paths, "fleet_sharded",
+                            smi)
+
+    def parity(device):
+        s = _fleet_server(device, async_ingest=False)
+        try:
+            return [_fleet_tick(s, telemetry, t)
+                    for t in range(FLEET_PARITY_TICKS)]
+        finally:
+            s.close()
+
+    card = counted(paths, "fleet_parity", lambda: parity(None), quiet=True)
+    cpu = parity("cpu")
+    n_loss = 0
+    for a, b in zip(card, cpu):
+        if a.grants != b.grants:
+            raise RuntimeError(f"fleet parity tick {a.tick}: grants card "
+                               f"{a.grants}, CPU {b.grants}")
+        for ra, rb in zip(a.reports, b.reports):
+            if (ra.admitted, ra.evicted, ra.released) != \
+                    (rb.admitted, rb.evicted, rb.released):
+                raise RuntimeError(f"fleet parity tick {a.tick}: plans "
+                                   f"differ")
+            if (ra.loss is None) != (rb.loss is None) or (
+                    ra.loss is not None and not np.isclose(
+                        ra.loss, rb.loss, rtol=1e-3, atol=1e-4)):
+                raise RuntimeError(f"fleet parity tick {a.tick}: loss card "
+                                   f"{ra.loss}, CPU {rb.loss}")
+            n_loss += ra.loss is not None
+    print(f"  fleet parity: {FLEET_PARITY_TICKS} ticks card against CPU, "
+          f"grants {card[-1].grants} and plans equal, {n_loss} shard losses "
+          f"within rtol 1e-3 / atol 1e-4")
+    return lat
+
+
+# -- 3. scale (benchmarks/online_scale.py) ----------------------------------- #
+def _scale_cfg(system, n_twins, shards, async_ingest=True):
+    """benchmarks/online_scale.py's per-shard config (and, with sync
+    ingest, online_federated.py's `_shard_cfg`)."""
+    from repro_torch.core.merinda import MerindaConfig
+    from repro_torch.twin.monitor import GuardConfig
+    from repro_torch.twin.server import TwinServerConfig
+    per_shard = -(-n_twins // shards)
+    s = system.spec
+    return TwinServerConfig(
+        merinda=MerindaConfig(n=s.n, m=s.m, order=3, dt=s.dt, hidden=16,
+                              head_hidden=16, n_active=24),
+        max_twins=per_shard, refit_slots=8, capacity=64, window=16,
+        stride=8, windows_per_twin=4, steps_per_tick=1, deploy_after=8,
+        min_residency=4, max_residency=16, guard=GuardConfig(window=24),
+        guard_budget=min(SCALE_GUARD_BUDGET, per_shard),
+        async_ingest=async_ingest, seed=0)
+
+
+def _f8_fleet(dev, n_twins, ticks):
+    """The benchmarks' telemetry, plain F8Crusader from seed 0, with every
+    trace that diverged (open-loop F-8 leaves controlled flight from some
+    initial states: about 1 in 200 over these ticks) drawn again from seed
+    1000, 2000, ..., as benchmarks/table1_accuracy.py resamples."""
+    from repro_torch.systems.f8_crusader import F8Crusader
+    from repro_torch.systems.simulate import simulate_batch
+    system = F8Crusader()
+    horizon = CHUNK * ticks + 1
+    tr = simulate_batch(system, torch.Generator().manual_seed(0), n_twins,
+                        horizon=horizon, noise_std=0.002, device=dev)
+    ys, us = tr.ys_noisy.cpu().numpy(), tr.us.cpu().numpy()
+    for attempt in range(1, 11):
+        bad = np.flatnonzero(~np.isfinite(ys).all(axis=(1, 2)))
+        if not len(bad):
+            return system, ys, us
+        tr = simulate_batch(system, torch.Generator().manual_seed(
+            1000 * attempt), len(bad), horizon=horizon, noise_std=0.002,
+            device=dev)
+        ys[bad], us[bad] = tr.ys_noisy.cpu().numpy(), tr.us.cpu().numpy()
+    raise RuntimeError("F-8 fleet telemetry: traces still diverge")
+
+
+def _drive(srv, ys, us, n_twins, ticks, warmup, sink=None,
+           on_tick=None):
+    """The benchmarks' loop: every twin's CHUNK a tick (through `sink`, a
+    front-door client, when given), drained during warm-up, stats reset
+    after it."""
+    sink = srv if sink is None else sink
+    reports = []
+    for t in range(ticks):
+        lo = t * CHUNK
+        sink.ingest_many([(i, ys[i, lo:lo + CHUNK], us[i, lo:lo + CHUNK])
+                          for i in range(n_twins)])
+        if t < warmup:
+            srv.drain()
+        reports.append(srv.tick())
+        if on_tick is not None:
+            on_tick(t, reports[-1])
+        if t == warmup - 1:
+            srv.reset_latency_stats()
+    srv.drain()
+    return reports
+
+
+def fleet_scale(dev, paths, smi) -> dict:
+    """benchmarks/online_scale.py's quick headline points: 1,000 and 10,000
+    F-8 twins on 4 in-process shards, SCALE_WARMUP + SCALE_TICKS ticks.
+    Returns each point's latency summary."""
+    from repro_torch.twin import ShardedTwinConfig, ShardedTwinServer
+    ticks = SCALE_WARMUP + SCALE_TICKS
+    out = {}
+    for n_twins in SCALE_TWINS:
+        system, ys, us = _f8_fleet(dev, n_twins, ticks)
+        path = f"scale_{n_twins // 1000}k"
+
+        def run():
+            srv = ShardedTwinServer(ShardedTwinConfig.uniform(
+                _scale_cfg(system, n_twins, SCALE_SHARDS), SCALE_SHARDS,
+                rebalance_every=4))
+            try:
+                srv.deploy_many(list(range(n_twins)), system.true_theta(
+                    srv.shards[0].fleet.model.lib))
+                reports = _drive(srv, ys, us, n_twins, ticks, SCALE_WARMUP)
+            finally:
+                srv.close()
+            return srv, reports
+
+        srv, reports = counted(paths, path, run, quiet=True)
+        _check_no_deaths(path, reports)
+        if reports[-1].n_twins != n_twins:
+            raise RuntimeError(f"{path}: {reports[-1].n_twins} twins")
+        lat, st = _fleet_summary(f"scale {n_twins} twins / {SCALE_SHARDS} "
+                                 "shards", srv, paths, path, smi)
+        if lat["dropped_samples"]:
+            raise RuntimeError(f"{path}: {lat['dropped_samples']} dropped")
+        out[n_twins] = dict(lat, **st)
+    lo, hi = (out[n] for n in SCALE_TWINS)
+    print(f"  scale: guard {lo['guard_ms']:.3f} -> {hi['guard_ms']:.3f} ms a "
+          f"tick from {SCALE_TWINS[0]} to {SCALE_TWINS[1]} twins "
+          f"({hi['guard_ms'] / max(lo['guard_ms'], 1e-9):.2f}x; the JAX "
+          f"benchmark's contract is at most 2x, not gated here) [{smi}]")
+    return out
+
+
+# -- 4. federation (benchmarks/online_federated.py) -------------------------- #
+def fleet_federated(dev, paths, smi, inproc: dict):
+    """online_federated.py's quick preset on the one card: 10,000 twins in
+    4 worker processes; 1,000 in 2 with every sample through the TCP front
+    door; the kill row (1,000 twins, 4 workers, the last one killed a third
+    into the measured ticks, restarted after 1 tick from its checkpoint and
+    the journal)."""
+    import os
+    import shutil
+    from repro_torch.twin import (ChaosConfig, FederatedTwinConfig,
+                                  FederatedTwinServer, FrontDoorClient,
+                                  RecoveryConfig)
+    ticks = SCALE_WARMUP + SCALE_TICKS
+
+    def serve(path, n_twins, workers, tcp=False):
+        system, ys, us = _f8_fleet(dev, n_twins, ticks)
+        scfg = _scale_cfg(system, n_twins, workers, async_ingest=False)
+        srv = FederatedTwinServer(FederatedTwinConfig.uniform(
+            scfg, workers, rebalance_every=4, front_door=tcp))
+        door = FrontDoorClient(srv.front_address) if tcp else None
+        seen = {}
+        try:
+            before = srv.worker_processes()
+            srv.deploy_many(list(range(n_twins)),
+                            system.true_theta(scfg.merinda.library))
+
+            def probe(t, rep):
+                if t == SCALE_WARMUP:
+                    seen["procs"] = _workers_on_card(srv, path)
+
+            reports = counted(paths, path, lambda: _drive(
+                srv, ys, us, n_twins, ticks, SCALE_WARMUP, sink=door,
+                on_tick=probe), quiet=True)
+            _worker_launches(paths, f"{path}_workers", before,
+                             srv.worker_processes())
+            _check_no_deaths(path, reports)
+            if reports[-1].n_twins != n_twins:
+                raise RuntimeError(f"{path}: {reports[-1].n_twins} twins")
+            lat, _ = _fleet_summary(
+                f"federated {n_twins} twins / {workers} workers"
+                f"{' through the TCP front door' if tcp else ''}", srv,
+                paths, path, smi, workers=f"{path}_workers")
+            print(f"  {path}: {_boot_line(srv)}")
+            return lat
+        finally:
+            if door is not None:
+                door.close()
+            srv.close()
+
+    lat = serve("federated_10k", FED_TWINS, FED_WORKERS)
+    base = inproc[FED_TWINS]["twin_refreshes_per_s"]
+    cores = os.cpu_count() or 1
+    note = ("" if cores >= FED_WORKERS + 1 else
+            f"; HOST-LIMITED: {cores} cores < {FED_WORKERS + 1}")
+    print(f"  federation: {FED_TWINS} twins, {FED_WORKERS} workers "
+          f"{lat['twin_refreshes_per_s']:.1f} refreshes/s against "
+          f"{base:.1f} in one process (step 3, async ingest): "
+          f"{lat['twin_refreshes_per_s'] / max(base, 1e-9):.2f}x, "
+          f"{cores} host cores{note} [{smi}]")
+    serve("federated_tcp", *FED_TCP, tcp=True)
+
+    # the kill row
+    n_twins, workers, measured = KILL_TWINS, KILL_WORKERS, KILL_TICKS
+    system, ys, us = _f8_fleet(dev, n_twins, SCALE_WARMUP + measured)
+    scfg = dataclasses.replace(_scale_cfg(system, n_twins, workers,
+                                          async_ingest=False),
+                               deadline_s=5.0)
+    victim = workers - 1
+    kill_tick = SCALE_WARMUP + max(2, measured // 3)
+    total_slots = max(workers, workers * scfg.refit_slots // 2)
+    shutil.rmtree(FLEET_CKPT_DIR, ignore_errors=True)
+    srv = FederatedTwinServer(FederatedTwinConfig.uniform(
+        scfg, workers, rebalance_every=4, total_slots=total_slots,
+        recovery=RecoveryConfig(ckpt_dir=str(FLEET_CKPT_DIR), ckpt_every=4,
+                                restart_delay_ticks=1),
+        chaos=ChaosConfig(kill_shard=victim, kill_at_tick=kill_tick)))
+    ema = []
+    try:
+        before = srv.worker_processes()
+        srv.deploy_many(list(range(n_twins)),
+                        system.true_theta(scfg.merinda.library))
+        reports = counted(paths, "federated_kill", lambda: _drive(
+            srv, ys, us, n_twins, SCALE_WARMUP + measured, SCALE_WARMUP,
+            on_tick=lambda t, r: ema.append(srv.federation.pressures[
+                victim])), quiet=True)
+        # the restarted worker's counters start from 0: count its own
+        after = srv.worker_processes()
+        after[victim] = dict(after[victim], **{
+            f"{k}_launches": after[victim][f"{k}_launches"]
+            + before[victim][f"{k}_launches"]
+            for k in ("gru_scan", "rk4_poly")})
+        _worker_launches(paths, "federated_kill_workers", before, after)
+        down = [k for k, r in enumerate(reports) if r.dead_shards]
+        restarted = [x for r in reports for x in r.restarted]
+        if [x["shard"] for x in restarted] != [victim] or not down:
+            raise RuntimeError(f"kill row: restarts {restarted}, down at "
+                               f"{down}")
+        back = next(k for k, r in enumerate(reports) if r.restarted)
+        _check_no_deaths("kill row", reports, allowed=set(down) | {back})
+        rec = restarted[0]
+        if rec["lost"] != 0:
+            raise RuntimeError(f"kill row: {rec['lost']} samples lost")
+        pre = reports[down[0] - 1].grants
+        migrated = [reports[k].grants for k in down
+                    if reports[k].grants[victim] == 0
+                    and sum(reports[k].grants) == total_slots
+                    and any(g > p for i, (g, p) in enumerate(
+                        zip(reports[k].grants, pre)) if i != victim)]
+        if len(migrated) != len(down):
+            raise RuntimeError(f"kill row: grants while down "
+                               f"{[reports[k].grants for k in down]}, before "
+                               f"{pre}")
+        held = {ema[k] for k in down} | {ema[down[0] - 1]}
+        if len(held) != 1:
+            raise RuntimeError(f"kill row: the victim's pressure EMA moved "
+                               f"while it was down: {sorted(held)}")
+        lat, _ = _fleet_summary(
+            f"kill row {n_twins} twins / {workers} workers", srv, paths,
+            "federated_kill", smi, workers="federated_kill_workers")
+        print(f"  kill row: worker {victim} killed at tick "
+              f"{reports[down[0]].tick}, down {rec['down_ticks']} tick(s), "
+              f"restored from its tick-{rec['ckpt_tick']} checkpoint, "
+              f"{rec['replayed']} samples replayed, {rec['lost']} lost; "
+              f"grants before {pre}, while down {migrated}, after "
+              f"{reports[back].grants}; its pressure EMA held at "
+              f"{held.pop():.3f}; {_boot_line(srv)} [{smi}]")
+    finally:
+        srv.close()
+        shutil.rmtree(FLEET_CKPT_DIR, ignore_errors=True)
+
+
+def fleet(dev, paths, smi):
+    def step(what, fn):
+        print(f"-- {what}")
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"   ({time.perf_counter() - t0:.1f} s)")
+        return out
+
+    step("conformance: one scenario, three servers",
+         lambda: fleet_conformance(paths, smi))
+    step(f"sharded: examples/sharded_fleet.py, {3 * FLEET_PER_FAMILY} twins",
+         lambda: fleet_sharded(dev, paths, smi))
+    scale = step(f"scale: {SCALE_TWINS} F-8 twins on {SCALE_SHARDS} shards",
+                 lambda: fleet_scale(dev, paths, smi))
+    step("federated: worker processes on the card",
+         lambda: fleet_federated(dev, paths, smi, scale))
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1701,6 +2362,11 @@ def main() -> int:
     t0 = time.perf_counter()
     offline(dev, paths)
     print(f"offline phase: {time.perf_counter() - t0:.1f} s")
+
+    print("== 9. the fleet: sharded and federated serving on the card")
+    t0 = time.perf_counter()
+    fleet(dev, paths, smi)
+    print(f"fleet phase: {time.perf_counter() - t0:.1f} s")
 
     print("== 8. kernel times at the serving and offline shapes")
     lines = kernel_lines(dev, paths, worst)

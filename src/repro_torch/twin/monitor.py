@@ -62,24 +62,28 @@ class GuardInstruments:
     live: object            # Gauge: guard-eligible (deployed + sampled) twins
 
     @staticmethod
-    def create(registry) -> "GuardInstruments":
+    def create(registry, labels: dict | None = None) -> "GuardInstruments":
+        """`labels` go on every child (a sharded server's `shard`)."""
+        labels = labels or {}
         return GuardInstruments(
             events={kind: registry.counter(
                         "twin_guard_events_total",
                         help="guard state transitions by kind",
-                        labels={"kind": kind})
+                        labels={**labels, "kind": kind})
                     for kind in ("REFIT", "ALERT")},
             score=registry.histogram(
                 "twin_divergence_score",
                 help="raw guard divergence scores (normalized rollout "
                      "error; 1e6 = non-finite blowup)",
-                bounds=DEFAULT_SCORE_BUCKETS),
+                bounds=DEFAULT_SCORE_BUCKETS, labels=labels),
             scored=registry.counter(
                 "twin_guard_scored_total",
-                help="twin scorings performed by the fused guard rollout"),
+                help="twin scorings performed by the fused guard rollout",
+                labels=labels),
             live=registry.gauge(
                 "twin_guard_live",
-                help="guard-eligible twins (deployed with enough samples)"))
+                help="guard-eligible twins (deployed with enough samples)",
+                labels=labels))
 
 
 class DivergenceGuard:

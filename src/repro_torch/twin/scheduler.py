@@ -26,13 +26,17 @@ Two planners implement the SAME admission semantics:
     winners through a `PriorityBuckets` queue, and re-scores them in float64
     with the reference arithmetic, so its plans are byte-identical.
 
-The slot federation (multi-server grants) is not ported yet.
+Across servers, `SlotFederation` divides a GLOBAL active-slot budget among
+per-shard schedulers in proportion to each shard's `pressure` (the sharded
+and federated servers, twin/sharded.py and twin/federation.py); each shard
+then plans under its grant through `max_active`.
 """
 from __future__ import annotations
 
 import heapq
 import math
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -41,7 +45,8 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.twin.packed import PackedFleet, fleet_pressure, fleet_scores
 
 __all__ = ["TwinRecord", "SchedulerConfig", "SchedulePlan", "SchedulerMetrics",
-           "PriorityBuckets", "RefitScheduler", "PackedRefitScheduler"]
+           "PriorityBuckets", "RefitScheduler", "PackedRefitScheduler",
+           "FederationConfig", "SlotFederation"]
 
 
 @dataclass
@@ -549,3 +554,123 @@ class PackedRefitScheduler:
             self.metrics.queue_entries.set(len(queue))
             self.metrics.plan_seconds.observe(time.perf_counter() - t0)
         return plan
+
+
+# --------------------------------------------------------------------------- #
+# Federation: divide a global active-slot budget across per-shard schedulers
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True, init=False)
+class FederationConfig:
+    """Slot-federation knobs; field names match `FleetTopologyConfig`
+    (twin/service.py), the config base both deployment shapes extend.
+
+    The older names (`min_slots=`, `smooth=`) are accepted as deprecated
+    keyword aliases: they warn and route to the canonical fields."""
+    total_slots: int                # global active-refit budget, all shards
+    min_shard_slots: int = 1        # per-shard grant floor (keeps shards live)
+    pressure_smooth: float = 0.5    # EMA weight of the newest pressure reading
+
+    def __init__(self, total_slots: int, min_shard_slots: int | None = None,
+                 pressure_smooth: float | None = None, *,
+                 min_slots: int | None = None, smooth: float | None = None):
+        for old, new, val in (("min_slots", "min_shard_slots", min_slots),
+                              ("smooth", "pressure_smooth", smooth)):
+            if val is not None:
+                warnings.warn(
+                    f"FederationConfig({old}=...) is deprecated; use "
+                    f"{new}=...", DeprecationWarning, stacklevel=2)
+        if min_slots is not None:
+            if min_shard_slots is not None:
+                raise TypeError("pass min_shard_slots OR min_slots, not both")
+            min_shard_slots = min_slots
+        if smooth is not None:
+            if pressure_smooth is not None:
+                raise TypeError("pass pressure_smooth OR smooth, not both")
+            pressure_smooth = smooth
+        object.__setattr__(self, "total_slots", total_slots)
+        object.__setattr__(self, "min_shard_slots",
+                           1 if min_shard_slots is None else min_shard_slots)
+        object.__setattr__(self, "pressure_smooth",
+                           0.5 if pressure_smooth is None else pressure_smooth)
+
+    @property
+    def min_slots(self) -> int:
+        """Deprecated alias of `min_shard_slots`."""
+        warnings.warn("FederationConfig.min_slots is deprecated; read "
+                      "min_shard_slots", DeprecationWarning, stacklevel=2)
+        return self.min_shard_slots
+
+    @property
+    def smooth(self) -> float:
+        """Deprecated alias of `pressure_smooth`."""
+        warnings.warn("FederationConfig.smooth is deprecated; read "
+                      "pressure_smooth", DeprecationWarning, stacklevel=2)
+        return self.pressure_smooth
+
+
+class SlotFederation:
+    """Rebalance refit-slot grants across shards by aggregate pressure.
+
+    Each shard reports its scheduler's `pressure` (summed staleness +
+    divergence priority over its ready twins); grants are allocated
+    proportionally -- floor first, then one slot at a time to the shard with
+    the lowest grant-to-pressure ratio, clamped at each shard's physical
+    pool.  Pressure is EMA-smoothed so one noisy tick does not thrash slots
+    between shards (a slot move costs a `reset_slot` warm-up on the
+    receiving side).
+    """
+
+    def __init__(self, cfg: FederationConfig, shard_slots: list[int]):
+        if cfg.total_slots > sum(shard_slots):
+            raise ValueError("federation budget exceeds the physical pools")
+        self.cfg = cfg
+        self.shard_slots = list(shard_slots)
+        self._ema = [0.0] * len(shard_slots)
+
+    @property
+    def pressures(self) -> list[float]:
+        return list(self._ema)
+
+    def rebalance(self, pressures: list[float],
+                  alive: list[bool] | None = None) -> list[int]:
+        """pressures[i] = shard i's current aggregate demand; returns the
+        per-shard active-slot grants (summing to total_slots when the
+        physical pools allow it).
+
+        `alive` (default: all True) masks out DEAD shards: a dead shard gets
+        grant 0 and no floor, so its share flows to the survivors until the
+        supervisor restarts it.  Its pressure EMA is held, not decayed, so
+        the restarted shard re-enters with its pre-crash demand.
+        """
+        cfg = self.cfg
+        n = len(self.shard_slots)
+        if alive is None:
+            alive = [True] * n
+        a = cfg.pressure_smooth
+        self._ema = [a * p + (1 - a) * e if up else e
+                     for p, e, up in zip(pressures, self._ema, alive)]
+        grants = [min(cfg.min_shard_slots, cap) if up else 0
+                  for cap, up in zip(self.shard_slots, alive)]
+        budget = cfg.total_slots - sum(grants)
+        while budget < 0:      # degenerate: floors exceed the global budget
+            i = max(range(n), key=lambda j: grants[j])
+            grants[i] -= 1
+            budget += 1
+        weights = [max(e, 0.0) if up else 0.0
+                   for e, up in zip(self._ema, alive)]
+        if sum(weights) <= 0:
+            weights = [1.0 if up else 0.0 for up in alive]
+            if sum(weights) <= 0:      # every shard dead: park the budget
+                return grants
+        # proportional-fair greedy: the next slot goes to the shard whose
+        # grant is smallest relative to its demand (deterministic)
+        while budget > 0:
+            cand = [i for i in range(n)
+                    if alive[i] and grants[i] < self.shard_slots[i]]
+            if not cand:
+                break
+            i = min(cand, key=lambda j: (grants[j] / (weights[j] + 1e-9),
+                                         -weights[j], j))
+            grants[i] += 1
+            budget -= 1
+        return grants

@@ -34,9 +34,12 @@ replays a `TelemetryJournal` suffix past a bounded staging buffer.
 `share_modules_from` lets a restarted server reuse a running one's ring,
 fleet, guard and scenario modules.
 
-Not ported yet: what only the sharded and federated servers call —
-`set_active_slots`, `refit_pressure`, `inject_delay_s` and the `shard=`
-label — which come with those servers.
+Fleet hooks (twin/sharded.py, twin/federation.py): `shard=` puts a
+`{"shard": "<i>"}` label on every instrument, so many shards share one
+registry; `set_active_slots` caps the refit slots the scheduler may fill
+(the federation's grant); `refit_pressure` is the demand the federation
+divides the global budget by; `inject_delay_s` is a chaos straggler's sleep
+inside the timed tick.
 """
 from __future__ import annotations
 
@@ -189,16 +192,20 @@ class TorchInitSource:
 class TwinServer:
     def __init__(self, cfg: TwinServerConfig, *, device=None,
                  share_modules_from: "TwinServer | None" = None,
-                 init_source=None,
+                 init_source=None, seed: int | None = None,
                  metrics: MetricRegistry | None = None,
-                 tracer: Tracer | None = None):
+                 tracer: Tracer | None = None,
+                 shard: int | str | None = None):
         """`device=None` runs on the CUDA card and raises without one;
         `device="cpu"` runs the plain PyTorch path.  `share_modules_from`
         reuses another server's ring, fleet, guard and scenario modules
         (they hold no serving state; the configs must agree on their
         shapes, and the device is the other server's).  `init_source`
         supplies random parameters (default: `TorchInitSource(fleet,
-        cfg.seed)`; see its docstring for the protocol)."""
+        seed)`, `seed` defaulting to `cfg.seed`; see its docstring for the
+        protocol).  `metrics`/`tracer` attach shared observability: a
+        sharded server passes one registry and tracer to every shard, each
+        with its own `shard` label."""
         if cfg.scheduler not in ("bucketed", "reference"):
             raise ValueError(f"unknown scheduler {cfg.scheduler!r} "
                              "(expected 'bucketed' or 'reference')")
@@ -208,6 +215,7 @@ class TwinServer:
         self.device = resolve_device(device) if src is None else src.device
         self.metrics = MetricRegistry() if metrics is None else metrics
         self.tracer = Tracer(enabled=False) if tracer is None else tracer
+        self._labels = {} if shard is None else {"shard": str(shard)}
         self.span = TelemetryRing.span(cfg.window, cfg.stride,
                                        cfg.windows_per_twin)
         self.min_samples = self.span + 1
@@ -246,7 +254,8 @@ class TwinServer:
             self.scenario_runner = ScenarioRunner(self.fleet.model.lib, m.dt,
                                                   cfg.scenario)
         self._rstate = self.ring.init()
-        self._init = (TorchInitSource(self.fleet, cfg.seed)
+        self._init = (TorchInitSource(self.fleet,
+                                      cfg.seed if seed is None else seed)
                       if init_source is None else init_source)
         self._fstate = self._to_device(self._init.fleet_init())
 
@@ -257,7 +266,7 @@ class TwinServer:
             evict_margin=cfg.evict_margin, min_residency=cfg.min_residency,
             max_residency=cfg.max_residency,
             release_divergence=cfg.release_divergence)
-        sched_metrics = SchedulerMetrics.create(self.metrics)
+        sched_metrics = SchedulerMetrics.create(self.metrics, self._labels)
         if cfg.scheduler == "bucketed":
             self.scheduler = PackedRefitScheduler(
                 sched_cfg, metrics=sched_metrics, device=self.device)
@@ -268,6 +277,8 @@ class TwinServer:
         # is the metadata mirror the reference planner reads
         self.packed = PackedFleet(cfg.max_twins)
         self._max_active: int | None = None   # slot cap (None: all slots)
+        self.inject_delay_s = 0.0     # chaos straggler: sleep inside the
+                                      # timed tick (twin/recovery.py)
 
         self._rotation = (None if cfg.guard_budget is None else
                           GuardRotation(cfg.guard_budget,
@@ -322,86 +333,106 @@ class TwinServer:
         return tree.to(self.device)
 
     def _init_instruments(self) -> None:
-        """Resolve this server's metric children."""
-        M = self.metrics
+        """Resolve this server's metric children (per-shard labels)."""
+        M, lab = self.metrics, self._labels
         self._m_tick = M.histogram(
             "twin_tick_latency_seconds",
-            help="full serving-tick wall latency", unit="seconds")
+            help="full serving-tick wall latency", unit="seconds",
+            labels=lab)
         self._m_stage = {
             s: M.histogram("twin_stage_latency_seconds",
                            help="per-stage serving-tick wall latency",
-                           unit="seconds", labels={"stage": s})
+                           unit="seconds", labels={**lab, "stage": s})
             for s in _STAGES}
         self._m_violations = M.counter(
             "twin_deadline_violations_total",
-            help="ticks whose wall latency exceeded deadline_s")
+            help="ticks whose wall latency exceeded deadline_s",
+            labels=lab)
         self._m_refreshes = M.counter(
             "twin_slot_refreshes_total",
-            help="refit-slot train advances (active slots summed per tick)")
+            help="refit-slot train advances (active slots summed per tick)",
+            labels=lab)
         self._m_dropped = M.counter(
             "twin_dropped_samples_total",
-            help="telemetry samples truncated by flush backlog")
+            help="telemetry samples truncated by flush backlog",
+            labels=lab)
         self._m_overflow = M.counter(
             "twin_flush_overflows_total",
-            help="flush batches that truncated a backlog")
+            help="flush batches that truncated a backlog",
+            labels=lab)
         self._m_prepare = M.histogram(
             "twin_flush_prepare_seconds",
-            help="host-side staging merge/pad latency", unit="seconds")
+            help="host-side staging merge/pad latency", unit="seconds",
+            labels=lab)
         self._m_tracked = M.gauge(
-            "twin_tracked_twins", help="registered tracked objects")
+            "twin_tracked_twins", help="registered tracked objects",
+            labels=lab)
         self._m_deployed = M.gauge(
-            "twin_deployed_twins", help="twins with a serving theta")
+            "twin_deployed_twins", help="twins with a serving theta",
+            labels=lab)
         self._m_active = M.gauge(
-            "twin_active_slots", help="refit slots currently assigned")
+            "twin_active_slots", help="refit slots currently assigned",
+            labels=lab)
         self._m_staging = M.gauge(
             "twin_staging_pending_samples",
-            help="samples staged but not yet flushed")
+            help="samples staged but not yet flushed",
+            labels=lab)
         self._m_queue = M.gauge(
             "twin_pump_queue_depth",
-            help="prepared flush batches awaiting the serving tick")
+            help="prepared flush batches awaiting the serving tick",
+            labels=lab)
         self._m_degraded = M.gauge(
             "twin_degraded_level",
-            help="deadline-degradation ladder level (0 = full service)")
+            help="deadline-degradation ladder level (0 = full service)",
+            labels=lab)
         self._m_deg_trans = {
             d: M.counter("twin_degraded_transitions_total",
                          help="degradation ladder moves by direction",
-                         labels={"direction": d})
+                         labels={**lab, "direction": d})
             for d in ("up", "down")}
         self._m_shed = {
             a: M.counter("twin_degraded_shed_total",
                          help="ticks that shed a stage under degradation",
-                         labels={"action": a})
+                         labels={**lab, "action": a})
             for a in ("guard", "refit", "promote")}
         self._m_ingest_retries = M.counter(
             "twin_ingest_retries_total",
-            help="ingest backoff retries after a staging overflow")
+            help="ingest backoff retries after a staging overflow",
+            labels=lab)
         self._m_ingest_dropped = M.counter(
             "twin_ingest_dropped_total",
             help="staged samples shed (drop-oldest) by non-strict ingest "
-                 "backpressure")
-        self._guard_obs = GuardInstruments.create(M)
+                 "backpressure",
+            labels=lab)
+        self._guard_obs = GuardInstruments.create(M, lab)
         self._m_scn_latency = M.histogram(
             "twin_scenario_latency_seconds",
             help="what-if query wall latency (ensemble x K fused rollout)",
-            unit="seconds")
+            unit="seconds",
+            labels=lab)
         self._m_scn_requests = M.counter(
             "twin_scenario_requests_total",
-            help="scenario queries answered")
+            help="scenario queries answered",
+            labels=lab)
         self._m_scn_rollouts = M.counter(
             "twin_scenario_rollouts_total",
             help="individual trajectories integrated for scenario queries "
-                 "(effective K x ensemble)")
+                 "(effective K x ensemble)",
+            labels=lab)
         self._m_scn_shrunk = M.counter(
             "twin_scenario_shrunk_total",
             help="scenario queries served with K shrunk by the degradation "
-                 "ladder")
+                 "ladder",
+            labels=lab)
         self._m_scn_refused = M.counter(
             "twin_scenario_refused_total",
-            help="scenario queries refused under deadline pressure")
+            help="scenario queries refused under deadline pressure",
+            labels=lab)
         self._m_scn_confidence = M.histogram(
             "twin_scenario_confidence",
             help="per-scenario ensemble confidence (1 = recent thetas "
-                 "agree)", bounds=(0.1, 0.25, 0.5, 0.75, 0.9, 0.99, 1.0))
+                 "agree)", bounds=(0.1, 0.25, 0.5, 0.75, 0.9, 0.99, 1.0),
+            labels=lab)
 
     # ------------------------------------------------------------------ #
     def register(self, twin_id: int) -> TwinRecord:
@@ -504,7 +535,7 @@ class TwinServer:
         span and a latency histogram.  With async ingest this runs on the
         pump thread, so the span lands on the pump's own trace track."""
         m = self.cfg.merinda
-        with self.tracer.span("pump_flush", cat="ingest"):
+        with self.tracer.span("pump_flush", cat="ingest", **self._labels):
             t0 = time.perf_counter()
             batch = prepare_flush(self._staging.swap(),
                                   capacity=self.cfg.capacity,
@@ -569,6 +600,26 @@ class TwinServer:
         """Stop the async flush worker (no-op for synchronous servers)."""
         if self._pump is not None:
             self._pump.close()
+
+    # ------------------------------------------------------------------ #
+    def set_active_slots(self, n: int | None) -> None:
+        """Cap the refit slots the scheduler may fill (the federation's
+        grant).  None restores the full physical pool."""
+        self._max_active = n
+
+    @property
+    def active_slot_cap(self) -> int:
+        return (self.cfg.refit_slots if self._max_active is None
+                else max(0, min(self.cfg.refit_slots, self._max_active)))
+
+    def refit_pressure(self) -> float:
+        """Aggregate staleness + divergence refit demand, the federation's
+        rebalance signal: one device reduction over the packed arrays
+        (bucketed scheduler), or the host scan over a registry snapshot
+        (reference scheduler)."""
+        if isinstance(self.scheduler, PackedRefitScheduler):
+            return self.scheduler.pressure(self.packed)
+        return self.scheduler.pressure(self.twin_snapshot())
 
     # ------------------------------------------------------------------ #
     def _rows(self, rows) -> torch.Tensor:
@@ -802,9 +853,11 @@ class TwinServer:
         deg = self._degradation
         shed_guard, defer_refit = deg.shed_guard, deg.defer_refit
         skip_promote = deg.skip_promote
-        with span("tick", tick=self.tick_count + 1):
+        with span("tick", tick=self.tick_count + 1, **self._labels):
             t0 = time.perf_counter()
             self.tick_count += 1
+            if self.inject_delay_s > 0.0:
+                time.sleep(self.inject_delay_s)
             with span("flush"):
                 self._flush()
             t1 = time.perf_counter()

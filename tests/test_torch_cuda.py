@@ -378,3 +378,70 @@ def test_linear_scan_kernel_refuses_gradients(cuda):
     q.requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
         linear_scan(q, k, v, w, u, mode="rwkv6")
+
+
+def _fleet_ticks(srv, ys, ticks=8, per_tick=10):
+    """Per tick: grants, active slots, per-shard losses, guard events."""
+    out = []
+    for t in range(ticks):
+        srv.ingest_many([(i, ys[i, t * per_tick:(t + 1) * per_tick])
+                         for i in range(ys.shape[0])])
+        rep = srv.tick()
+        out.append((rep.grants, rep.n_active, [r.loss for r in rep.reports],
+                    [(e.tick, e.twin_id, e.kind, e.score)
+                     for e in rep.events], rep.dead_shards))
+    return out
+
+
+@pytest.mark.cuda
+def test_federated_workers_equal_in_process_shards_on_the_card(cuda):
+    """2 worker processes, each with its own CUDA context, serve what 2
+    in-process shards serve on the card: grants, active slots and guard
+    transitions equal, losses and scores within 1e-6 relative (the same
+    kernels on the same inputs); every worker launched both kernels."""
+    from repro_torch.core.merinda import MerindaConfig
+    from repro_torch.systems.lotka_volterra import LotkaVolterra
+    from repro_torch.systems.simulate import simulate_batch
+    from repro_torch.twin import (FederatedTwinConfig, FederatedTwinServer,
+                                  GuardConfig, ShardedTwinConfig,
+                                  ShardedTwinServer, TwinServerConfig)
+    system = LotkaVolterra()
+    ys = simulate_batch(system, torch.Generator().manual_seed(0), 8,
+                        horizon=300, noise_std=0.002,
+                        device="cpu").ys_noisy.numpy()
+    cfg = TwinServerConfig(
+        merinda=MerindaConfig(n=2, m=0, order=2, hidden=16, head_hidden=16,
+                              n_active=6, dt=system.spec.dt),
+        max_twins=4, refit_slots=2, capacity=128, window=16, stride=8,
+        windows_per_twin=4, steps_per_tick=1, deploy_after=2,
+        min_residency=1, max_residency=4, guard=GuardConfig(window=16))
+    true = np.asarray(system.true_theta(system.library()), np.float32)
+    thetas = np.stack([true if i % 3 else -true for i in range(8)])
+    kw = dict(total_slots=3, rebalance_every=2)
+    inproc = ShardedTwinServer(ShardedTwinConfig.uniform(cfg, 2, **kw))
+    try:
+        inproc.deploy_many(list(range(8)), thetas)
+        want = _fleet_ticks(inproc, ys)
+    finally:
+        inproc.close()
+    fed = FederatedTwinServer(FederatedTwinConfig.uniform(cfg, 2, **kw))
+    try:
+        fed.deploy_many(list(range(8)), thetas)
+        got = _fleet_ticks(fed, ys)
+        procs = fed.worker_processes()
+    finally:
+        fed.close()
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert (g[0], g[1], g[4]) == (w[0], w[1], w[4]) == \
+            (w[0], w[1], 0), t
+        assert [e[:3] for e in g[3]] == [e[:3] for e in w[3]], t
+        np.testing.assert_allclose([e[3] for e in g[3]],
+                                   [e[3] for e in w[3]], rtol=1e-6)
+        assert [x is None for x in g[2]] == [x is None for x in w[2]], t
+        np.testing.assert_allclose([x for x in g[2] if x is not None],
+                                   [x for x in w[2] if x is not None],
+                                   rtol=1e-6)
+    assert any(x is not None for t in want for x in t[2])
+    assert all(p["device"].startswith("cuda") for p in procs)
+    assert all(p["gru_scan_launches"] > 0 and p["rk4_poly_launches"] > 0
+               for p in procs)

@@ -34,10 +34,13 @@ def test_every_module_imports_without_jax():
                                "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     assert len(_modules()) > 20
-    # the crash-safety slice's modules are among them
+    # the crash-safety slice's modules and the fleet slice's are among them
     assert {"repro_torch.train.checkpoint", "repro_torch.twin.recovery",
             "repro_torch.data.pipeline",
-            "repro_torch.distributed.fault_tolerance"} <= set(_modules())
+            "repro_torch.distributed.fault_tolerance",
+            "repro_torch.twin.service", "repro_torch.twin.wire",
+            "repro_torch.twin.sharded",
+            "repro_torch.twin.federation"} <= set(_modules())
 
 
 def _imported_roots(path: Path) -> set[str]:
