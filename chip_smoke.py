@@ -19,7 +19,10 @@ each of which raises on failure (the script then exits nonzero):
              F8Crusader(n_aircraft=6) and (n_aircraft=11), 300 steps,
              forward and gradients; the linear scan in both modes, bf16
              and f32, with and without the bonus, ragged, short, carried
-             and wide);
+             and wide, and in ssd mode on Mamba-2's operands -- one value
+             of decay a head broadcast over K, q and k shared by the heads
+             -- at zamba2-7b's width (H=112, K=V=64, 2048 tokens) and at
+             its SMOKE width K=V=16);
   3. serve   64 F-8 twins at the repo's own serving width
              (examples/online_twinning.py), warm-started with the true
              theta, 12 airframes damaged mid-stream, 40 ticks of 8 samples
@@ -78,16 +81,35 @@ each of which raises on failure (the script then exits nonzero):
              nvidia-smi's compute processes (where nvidia-smi sees
              another pid namespace it names every process pid 1, and
              their count stands in);
+ 10. LM zoo (run before 8): zamba2-7b and qwen3-8b at full width and
+             depth (81 Mamba-2 layers + 14 shared-block invocations, d_model
+             3584; 36 attention layers, d_model 4096; bf16, random weights
+             from a seed), each behind a 4-slot ServeEngine with phase 5's
+             protocol (8 greedy requests of 256-2048 tokens, 32 new
+             tokens; the zamba2 prefill path launches the scan exactly 81
+             times a request, decode and qwen3 none), then one more prefill
+             and 4 decode steps under torch.profiler; the scan held to its
+             plain version on the operands it got from one zamba2 layer
+             of a 2048-token prefill; then the six architectures of the
+             slice card against CPU in f32, the same weights, prefill and 8
+             greedy decode steps (tokens equal, logits within LM_TOL), at
+             full width and cut depth: zamba2 7 layers (a cycle of 6 and
+             a 1-layer tail: both shared-block sites), qwen3, starcoder2,
+             chatglm3 and chameleon 2 layers, gemma3 6 (a local x5 + global
+             cycle) with an 1,100-token prompt, past its 1,024 window, so
+             the local layers' ring caches wrap;
   8. time    each kernel and its plain version at every serving and
              offline shape (GRU: the online tick's refit, the offline
              fleet's, F-8 training's and recovery's, Table I's
              Lotka-Volterra; RK4: refit, guard, promote, predict, scenario,
              a fleet of 2048, the F-8 and Lorenz simulations; the scan:
-             prompts of 256-4096 tokens, 4 prompts of 2048), and the scan's
-             three launches apart.
+             prompts of 256-4096 tokens, 4 prompts of 2048, and zamba2-7b's
+             Mamba-2 prefill of 2048 tokens), and the scan's three launches
+             apart.
 
 Kernel launch counts are set to 0 just before each path (tick, predict,
-scenario, the crash-safety runs, LM prefill, LM decode, the offline ones:
+scenario, the crash-safety runs, LM prefill and decode of rwkv6, zamba2
+and qwen3, the offline ones:
 simulate, each Table I fit and its scoring, F-8 training and recovery,
 the offline fleet; and phase 9's in-process runs) and read just after it;
 a path that launches none of its kernels, or one it does not run, fails.
@@ -140,6 +162,20 @@ LM_TOL = dict(rtol=1e-3, atol=1e-3)
 LM_SLOTS, LM_REQUESTS, LM_NEW, LM_PROMPTS = 4, 8, 32, (256, 2048)
 LM_PARITY_LAYERS, LM_PARITY_PROMPT, LM_PARITY_STEPS = 2, 300, 16
 LM_PROFILE_STEPS = 4  # decode steps traced by torch.profiler after serving
+# phase 10, the LM zoo: served at full width and depth with phase 5's
+# protocol (arch -> the prefix of its two launch-count paths), and card
+# against CPU in f32 at full width and cut depth, arch -> (layers, prompt):
+# zamba2 one cycle of 6 and a 1-layer tail (the shared block at both of its
+# sites), gemma3 one local x5 + global cycle with a prompt past its 1,024
+# window (the local rings wrap), the dense ones 2 layers
+ZOO_SERVED = {"zamba2-7b": "lm_zamba2", "qwen3-8b": "lm_qwen3"}
+ZOO_PARITY = {"zamba2-7b": (7, 300), "qwen3-8b": (2, 300),
+              "starcoder2-15b": (2, 300), "chatglm3-6b": (2, 300),
+              "gemma3-12b": (6, 1100), "chameleon-34b": (2, 300)}
+ZOO_PARITY_STEPS = 8
+# the scan's operands are recorded from this zamba2 layer of a prefill of
+# LM_PROMPTS[1] tokens (outside the counted run)
+ZOO_RECORD_LAYER = 40
 # the kernels each serving path must launch (the LM decode path none)
 # the CUDA kernels of csrc/, as the profiler names them
 OWN_KERNELS = ("gru_scan_kernel", "rk4_poly_kernel", "chunk_state_kernel",
@@ -147,6 +183,11 @@ OWN_KERNELS = ("gru_scan_kernel", "rk4_poly_kernel", "chunk_state_kernel",
 PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
                 "scenario": ("rk4_poly",), "lm_prefill": ("linear_scan",),
                 "lm_decode": (),
+                # the LM zoo: every Mamba-2 layer's prefill runs the scan;
+                # attention and every decode run no kernel of ours
+                "lm_zamba2_prefill": ("linear_scan",),
+                "lm_zamba2_decode": (),
+                "lm_qwen3_prefill": (), "lm_qwen3_decode": (),
                 # offline recovery: simulation; Table I's fits (EMILY's and
                 # PINN+SR's run plain PyTorch only) and its scoring (MERINDA's
                 # recover encodes; every score integrates); F-8 training,
@@ -585,11 +626,33 @@ def _scan_inputs(gen, dev, B, H, T, dtype, strong=False):
             w.to(dev), (0.3 * rand(H, K)).to(dev))
 
 
+def _mamba2_scan_inputs(gen, dev, B, H, T, K, dtype):
+    """The scan's operands as models/mamba2.py builds them, materialised as
+    the wrapper hands them to the kernel: q = C_t and k = B_t shared by the
+    heads, v = dt * x, w = -exp(A_log) * dt one value a head broadcast over
+    K, with A_log = log(linspace(1, 16, H)) as mamba2_init draws it and
+    dt = softplus(N(0, 2) + dt_bias), dt_bias from mamba2_init's range: a
+    step decays by up to exp(-16 dt), dt reaching several units."""
+    rand = lambda *s: torch.randn(s, generator=gen)
+    u = torch.rand((H,), generator=gen)
+    lo, hi = float(np.log(1e-3)), float(np.log(1e-1))
+    dt_bias = torch.log(torch.expm1(torch.exp(lo + u * (hi - lo))))
+    dt = torch.nn.functional.softplus(2.0 * rand(B, H, T)
+                                      + dt_bias[None, :, None])
+    w = -torch.linspace(1.0, 16.0, H)[None, :, None] * dt
+    mat = lambda t, dt_: t.to(dev, dt_).expand(B, H, T, K).contiguous()
+    return (mat(rand(B, 1, T, K), dtype), mat(rand(B, 1, T, K), dtype),
+            (rand(B, H, T, K) * dt[..., None]).to(dev, dtype),
+            mat(w[..., None], torch.float32))
+
+
 def check_scan(dev) -> float:
     """The linear-scan kernel against its plain chunked version: the RWKV-6
     prefill shape (B=1, H=40, K=V=64, chunk 64) with a ragged T, T < 64
     (C = T), a state carried across two halves, strong decays, and B*H >
-    132; both modes, with and without the bonus u, bf16 and f32."""
+    132; both modes, with and without the bonus u, bf16 and f32.  Then ssd
+    on Mamba-2's operands at zamba2-7b's width (H=112, K=V=64, T=2048) and
+    its SMOKE width (H=8, K=V=16, T=333), fresh and carried."""
     from repro_torch.kernels.linear_scan.ops import linear_scan
     from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
     gen = torch.Generator().manual_seed(3)
@@ -628,6 +691,23 @@ def check_scan(dev) -> float:
             worst = max(worst, err)
             print(f"  linear_scan {'carry 450 + 550 ' + mode:40s} "
                   f"max|err| {err:.3e}")
+        for label, H, T, K in (("mamba2 zamba2 H=112 T=2048 K=64", 112,
+                                2048, 64),
+                               ("mamba2 smoke H=8 T=333 K=16", 8, 333, 16)):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, w = _mamba2_scan_inputs(gen, dev, 1, H, T, K, dtype)
+                s0 = 0.1 * torch.randn((1, H, K, K), generator=gen).to(dev)
+                for init in (None, s0):
+                    got = linear_scan(q, k, v, w, mode="ssd",
+                                      initial_state=init)
+                    want = linear_scan_chunked(q, k, v, w, mode="ssd",
+                                               initial_state=init)
+                    torch.cuda.synchronize()
+                    name = (f"{label} {str(dtype)[6:]}"
+                            f"{' carried' if init is not None else ''}")
+                    err = _close(f"linear_scan {name}", got, want, SCAN_TOL)
+                    worst = max(worst, err)
+                    print(f"  linear_scan {name:40s} max|err| {err:.3e}")
     return worst
 
 
@@ -769,6 +849,9 @@ SCAN_SHAPES = {            # (B, H, T): RWKV-6 prefills of one or 4 prompts
     "T=256": (1, 40, 256), "T=659": (1, 40, 659), "T=1024": (1, 40, 1024),
     "T=2048": (1, 40, 2048), "T=4096": (1, 40, 4096),
     "B=4 T=2048": (4, 40, 2048),
+    # a zamba2-7b Mamba-2 layer's prefill of 2048 tokens: ssd mode, no
+    # bonus, 112 heads, K = state 64, V = head dim 64
+    "mamba2 B=1 H=112 T=2048": (1, 112, 2048),
 }
 
 
@@ -801,10 +884,11 @@ def kernel_lines(dev, paths, worst):
     and at F-8 training's 64 windows, H=96),
     RK4 at the refit decoder (B=64, T=24, n=3, L=35, O=3,
     m=1), the linear scan at the RWKV-6 prefill (B=1, H=40, T=2048,
-    K=V=64, C=64, bf16 q/k/v) -- and `*_by_shape` hold every serving shape
-    timed.  None has a single PyTorch call computing the same function
-    (torch's GRU applies the reset gate after the hidden product; no call
-    runs an ODE or a decayed linear recurrence), so library_ms is null."""
+    K=V=64, C=64, bf16 q/k/v; also at a zamba2-7b Mamba-2 layer's, ssd,
+    H=112) -- and `*_by_shape` hold every serving shape timed.  None has a
+    single PyTorch call computing the same function (torch's GRU applies
+    the reset gate after the hidden product; no call runs an ODE or a
+    decayed linear recurrence), so library_ms is null."""
     from repro_torch.kernels.gru.ops import gru_scan
     from repro_torch.kernels.gru.ref import gru_scan_ref
     from repro_torch.kernels.linear_scan.ops import linear_scan
@@ -877,21 +961,28 @@ def kernel_lines(dev, paths, worst):
         timings, pairwise = {}, {}
         K = V = C = 64
         for label, (B, H, T) in SCAN_SHAPES.items():
-            q, k, v, w, u = _scan_inputs(gen, dev, B, H, T, torch.bfloat16)
-            o, sf = linear_scan(q, k, v, w, u, mode="rwkv6", chunk=C)
-            nbytes = sum(t.nbytes for t in (q, k, v, w, u, o, sf))
-            f32, tf32 = _scan_work(B, H, T, K, V, C, True, True)
+            rwkv6 = not label.startswith("mamba2")
+            mode = "rwkv6" if rwkv6 else "ssd"
+            if rwkv6:
+                args = _scan_inputs(gen, dev, B, H, T, torch.bfloat16)
+            else:
+                # materialised as the wrapper hands them to the kernel: q,
+                # k and w are read at [B, H, T, K] whatever they broadcast
+                args = (*_mamba2_scan_inputs(gen, dev, B, H, T, K,
+                                             torch.bfloat16), None)
+            o, sf = linear_scan(*args, mode=mode, chunk=C)
+            nbytes = sum(t.nbytes for t in (*args, o, sf) if t is not None)
+            f32, tf32 = _scan_work(B, H, T, K, V, C, rwkv6, True)
             timings[label] = _timed(
-                lambda a=(q, k, v, w, u): linear_scan(*a, mode="rwkv6",
-                                                      chunk=C),
-                lambda a=(q, k, v, w, u): linear_scan_chunked(
-                    *a, mode="rwkv6", chunk=C),
+                lambda a=args, m=mode: linear_scan(*a, mode=m, chunk=C),
+                lambda a=args, m=mode: linear_scan_chunked(*a, mode=m,
+                                                           chunk=C),
                 f32, nbytes, plain_reps=3, tf32_flops=tf32,
                 eager=label == "T=2048")
             pairwise[label] = _bound(
-                _scan_work_pairwise(B, H, T, K, V, C, True), nbytes)[0]
+                _scan_work_pairwise(B, H, T, K, V, C, rwkv6), nbytes)[0]
             if label == "T=2048":
-                scan_launches(lambda a=(q, k, v, w, u): linear_scan(
+                scan_launches(lambda a=args: linear_scan(
                     *a, mode="rwkv6", chunk=C))
         line = _by_shape(dict(
             **common("linear_scan"),
@@ -1287,22 +1378,37 @@ def _n_params(tree) -> int:
     return tree.numel()
 
 
-def serve_lm(paths: dict):
-    """rwkv6-3b at full width behind a 4-slot engine: 8 greedy requests,
-    admitted as slots free up; every admit counted on the lm_prefill path
-    and every decode step on the lm_decode path."""
+def _describe(cfg) -> str:
+    kinds = cfg.layer_kinds()
+    parts = [f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds)]
+    if cfg.shared_every:
+        from repro_torch.models.kv_cache import n_shared
+        parts.append(f"{n_shared(cfg)} shared-block invocations "
+                     f"({cfg.shared_n_heads} heads of "
+                     f"{2 * cfg.d_model // cfg.shared_n_heads})")
+    return (f"{cfg.name}: {cfg.n_layers} layers ({', '.join(parts)}), "
+            f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+            f"{cfg.dtype}")
+
+
+def serve_lm(paths: dict, arch: str = "rwkv6-3b", prefix: str = "lm",
+             after=None):
+    """`arch` at full width behind a 4-slot engine: 8 greedy requests,
+    admitted as slots free up; every admit counted on the <prefix>_prefill
+    path and every decode step on <prefix>_decode.  The prefill path must
+    launch the scan once for every RWKV-6 or Mamba-2 layer of every
+    request.  `after(api, params)` runs last, outside the counted runs."""
     from repro_torch.configs import get_arch
     from repro_torch.serve.engine import Request, ServeEngine
-    cfg = get_arch("rwkv6-3b").config
+    cfg = get_arch(arch).config
+    pre_path, dec_path = f"{prefix}_prefill", f"{prefix}_decode"
     finite = []
     api = _lm_api(cfg, finite)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init(seed=0)
     torch.cuda.synchronize()
-    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: "
-          f"{_n_params(params) / 1e9:.3f}B parameters, "
+    print(f"{_describe(cfg)}: {_n_params(params) / 1e9:.3f}B parameters, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"drawn in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(7)
@@ -1326,22 +1432,23 @@ def serve_lm(paths: dict):
         while pending and engine.free_slots():
             req = pending.pop(0)
             t0 = time.perf_counter()
-            if not counted(paths, "lm_prefill", lambda: engine.admit(req),
+            if not counted(paths, pre_path, lambda: engine.admit(req),
                            quiet=True):
                 raise RuntimeError(f"request {req.rid} was not admitted")
             prefill_s += time.perf_counter() - t0
             admitted += 1
         t0 = time.perf_counter()
-        done += counted(paths, "lm_decode", engine.step, quiet=True)
+        done += counted(paths, dec_path, engine.step, quiet=True)
         decode_s += time.perf_counter() - t0
         steps += 1
-    for path in ("lm_prefill", "lm_decode"):
+    for path in (pre_path, dec_path):
         print(f"kernel launches on the {path} path: {paths[path]}")
-    want = cfg.n_layers * admitted
-    if paths["lm_prefill"]["linear_scan"] != want:
-        raise RuntimeError(f"lm_prefill launched linear_scan "
-                           f"{paths['lm_prefill']['linear_scan']} times, "
-                           f"expected {cfg.n_layers} x {admitted} = {want}")
+    scan_layers = sum(k in ("rwkv6", "mamba2") for k in cfg.layer_kinds())
+    want = scan_layers * admitted
+    if paths[pre_path]["linear_scan"] != want:
+        raise RuntimeError(f"{pre_path} launched linear_scan "
+                           f"{paths[pre_path]['linear_scan']} times, "
+                           f"expected {scan_layers} x {admitted} = {want}")
     if sorted(r.rid for r in done) != list(range(LM_REQUESTS)):
         raise RuntimeError(f"finished {sorted(r.rid for r in done)}")
     for r in done:
@@ -1349,23 +1456,28 @@ def serve_lm(paths: dict):
                 0 <= t < cfg.vocab for t in r.generated):
             raise RuntimeError(f"request {r.rid}: {r.generated}")
     if not bool(torch.stack(finite).all()):
-        raise RuntimeError("non-finite logits on the LM path")
+        raise RuntimeError(f"non-finite logits on the {cfg.name} path")
     tokens = int(lens.sum())
-    print(f"served {len(done)} requests (prompts {sorted(lens.tolist())}), "
-          f"{LM_NEW} tokens each; {len(finite)} logit rows finite")
-    print(f"prefill {tokens} tokens in {prefill_s * 1e3:.2f} ms: "
+    print(f"{cfg.name}: served {len(done)} requests (prompts "
+          f"{sorted(lens.tolist())}), {LM_NEW} tokens each; {len(finite)} "
+          f"logit rows finite; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    print(f"{cfg.name}: prefill {tokens} tokens in {prefill_s * 1e3:.2f} ms: "
           f"{tokens / prefill_s:.1f} tokens/s; decode {steps} steps of "
           f"{LM_SLOTS} slots in {decode_s * 1e3:.2f} ms: "
           f"{decode_s * 1e3 / steps:.3f} ms per step")
-    print(f"request 0 tokens: {reqs[0].generated}")
+    print(f"{cfg.name}: request 0 tokens: {reqs[0].generated}")
     # after the counted run: one more prefill, then decode steps, profiled
     extra = Request(rid=LM_REQUESTS, prompt=prompts[-1][:1024],
                     max_new_tokens=LM_PROFILE_STEPS + 1)
-    profiled(f"LM prefill of {len(extra.prompt)} tokens",
+    profiled(f"{cfg.name} prefill of {len(extra.prompt)} tokens",
              lambda: engine.admit(extra))
-    profiled(f"{LM_PROFILE_STEPS} LM decode steps (1 active slot)",
+    profiled(f"{LM_PROFILE_STEPS} {cfg.name} decode steps (1 active slot)",
              lambda: [engine.step() for _ in range(LM_PROFILE_STEPS)])
-    del engine, params
+    del engine
+    if after is not None:
+        after(api, params)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -1377,47 +1489,106 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def lm_parity(dev):
-    """rwkv6-3b at full width, 2 layers, f32: the same weights (drawn on
-    the card) on the card and on the CPU give prefill logits within
-    LM_TOL, and equal greedy tokens with logits within LM_TOL for
-    LM_PARITY_STEPS decode steps."""
+def lm_parity(dev, arch: str = "rwkv6-3b", layers: int = LM_PARITY_LAYERS,
+              prompt_len: int = LM_PARITY_PROMPT,
+              steps: int = LM_PARITY_STEPS):
+    """`arch` at full width, `layers` layers, f32: the same weights (drawn
+    on the card) on the card and on the CPU give prefill logits within
+    LM_TOL, and equal greedy tokens with logits within LM_TOL for `steps`
+    decode steps."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tfm
-    cfg = get_arch("rwkv6-3b").config.with_(n_layers=LM_PARITY_LAYERS,
-                                            dtype=torch.float32)
+    cfg = get_arch(arch).config.with_(n_layers=layers, dtype=torch.float32)
+    t0 = time.perf_counter()
     params = tfm.init_params(cfg, seed=1, device=dev)
     cpu_params = _to(params, "cpu")
     prompt = np.random.default_rng(8).integers(0, cfg.vocab,
-                                               size=(1, LM_PARITY_PROMPT))
+                                               size=(1, prompt_len))
     worst, toks = 0.0, []
     with torch.no_grad():
         caches, logits = [], []
         for d, p in ((dev, params), ("cpu", cpu_params)):
             c, lg = tfm.prefill(cfg, p, torch.as_tensor(prompt, device=d),
-                                LM_PARITY_PROMPT + LM_PARITY_STEPS)
+                                prompt_len + steps)
             caches.append(c)
             logits.append(lg)
-        for step in range(LM_PARITY_STEPS + 1):
+        for step in range(steps + 1):
             card, host = logits[0].cpu(), logits[1]
             torch.testing.assert_close(card, host, **LM_TOL, msg=lambda m:
-                                       f"LM logits, step {step}: {m}")
+                                       f"{arch} logits, step {step}: {m}")
             worst = max(worst, float((card - host).abs().max()))
             nxt = [int(torch.argmax(lg[0])) for lg in (card, host)]
             if nxt[0] != nxt[1]:
-                raise RuntimeError(f"step {step}: card token {nxt[0]}, CPU "
-                                   f"{nxt[1]}")
+                raise RuntimeError(f"{arch} step {step}: card token "
+                                   f"{nxt[0]}, CPU {nxt[1]}")
             toks.append(nxt[0])
-            if step == LM_PARITY_STEPS:
+            if step == steps:
                 break
             for i, (d, p) in enumerate(((dev, params), ("cpu", cpu_params))):
                 caches[i], logits[i] = tfm.decode_step(
                     cfg, p, caches[i], torch.tensor([nxt[0]], device=d))
-    print(f"prefill of {LM_PARITY_PROMPT} tokens + {LM_PARITY_STEPS} decode "
-          f"steps: greedy tokens equal ({toks}), logits max|card - CPU| "
-          f"{worst:.3e}")
+    print(f"{_describe(cfg)}: prefill of {prompt_len} tokens + {steps} "
+          f"decode steps: greedy tokens equal ({toks}), logits max|card - "
+          f"CPU| {worst:.3e} ({time.perf_counter() - t0:.1f} s)")
     del params, cpu_params
     torch.cuda.empty_cache()
+
+
+def _record_scan(worst: dict):
+    """An `after` for serve_lm: one more prefill of LM_PROMPTS[1] tokens,
+    recording the scan's operands in Mamba-2 layer ZOO_RECORD_LAYER, then
+    the kernel against its plain version on exactly those operands."""
+    def after(api, params):
+        from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
+        from repro_torch.models import mamba2 as m2
+        real, rec, calls = m2.linear_scan, {}, [0]
+
+        def record(q, k, v, w, **kw):
+            if calls[0] == ZOO_RECORD_LAYER:
+                rec.update(args=(q, k, v, w), kw=kw)
+            calls[0] += 1
+            return real(q, k, v, w, **kw)
+        tokens = np.random.default_rng(9).integers(
+            0, api.cfg.vocab, size=(1, LM_PROMPTS[1]))
+        m2.linear_scan = record
+        try:
+            with torch.no_grad():
+                api.prefill(params, {"tokens": torch.as_tensor(
+                    tokens, device=params["embed"]["w"].device)},
+                    LM_PROMPTS[1] + 1)
+        finally:
+            m2.linear_scan = real
+        q, k, v, w = rec["args"]
+        with torch.no_grad():
+            got = real(q, k, v, w, **rec["kw"])
+            want = linear_scan_chunked(q, k, v, w, **rec["kw"])
+        torch.cuda.synchronize()
+        name = (f"zamba2 layer {ZOO_RECORD_LAYER} ssd {tuple(q.shape)} "
+                f"{str(q.dtype)[6:]}")
+        err = _close(f"linear_scan {name}", got, want, SCAN_TOL)
+        worst["linear_scan"] = max(worst["linear_scan"], err)
+        w_head = w[0, :, :, 0]
+        flushed = float((w_head < -126 * np.log(2)).float().mean())
+        print(f"  linear_scan {name} max|err| {err:.3e}; log decay per "
+              f"step min {float(w_head.min()):.3f}, median "
+              f"{float(w_head.median()):.4f}; share of steps decaying "
+              f"below 2^-126: {flushed:.2e}; |o| max "
+              f"{float(got[0].abs().max()):.3e}")
+    return after
+
+
+def lm_zoo(dev, paths, worst):
+    """Phase 10: ZOO_SERVED at full width and depth with phase 5's
+    protocol (zamba2's scan also held to its plain version on one layer's
+    recorded operands), then every ZOO_PARITY architecture card against
+    CPU in f32 at full width and cut depth."""
+    for arch, prefix in ZOO_SERVED.items():
+        t0 = time.perf_counter()
+        serve_lm(paths, arch, prefix,
+                 after=_record_scan(worst) if arch == "zamba2-7b" else None)
+        print(f"{arch}: {time.perf_counter() - t0:.1f} s")
+    for arch, (layers, prompt) in ZOO_PARITY.items():
+        lm_parity(dev, arch, layers, prompt, ZOO_PARITY_STEPS)
 
 
 def profiled(what: str, fn, top: int = 8):
@@ -2305,6 +2476,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2368,8 +2540,17 @@ def main() -> int:
     fleet(dev, paths, smi)
     print(f"fleet phase: {time.perf_counter() - t0:.1f} s")
 
+    print("== 10. the LM zoo: zamba2-7b and qwen3-8b served at full size, "
+          "six architectures card against CPU")
+    t0 = time.perf_counter()
+    lm_zoo(dev, paths, worst)
+    print(f"LM zoo phase: {time.perf_counter() - t0:.1f} s")
+
     print("== 8. kernel times at the serving and offline shapes")
+    t0 = time.perf_counter()
     lines = kernel_lines(dev, paths, worst)
+    print(f"kernel timing phase: {time.perf_counter() - t0:.1f} s; the "
+          f"script so far: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_arch(<id>)`` -> full config + smoke config.
 
 The registry names every architecture the JAX package has; the ones not
-ported yet raise NotImplementedError.  `SHAPES` are the JAX package's four
+ported yet (MoE: mixtral, arctic; the encoder-decoder: whisper) raise
+NotImplementedError.  `SHAPES` are the JAX package's four
 input-shape cells.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 __all__ = ["SHAPES", "Shape", "ArchSpec", "get_arch", "list_archs",
-           "PORTED"]
+           "PORTED", "FULL_ATTN_SKIP"]
 
 
 @dataclass(frozen=True)
@@ -42,6 +43,10 @@ class ArchSpec:
         return [s for n, s in SHAPES.items() if n not in self.skip_shapes]
 
 
+FULL_ATTN_SKIP = ("pure full-attention arch: 500k-token decode has no "
+                  "sub-quadratic/windowed/recurrent mode; skipped per the "
+                  "assignment shape rules (recorded in DESIGN.md)")
+
 _ARCHS = {
     "chameleon-34b": "chameleon_34b",
     "arctic-480b": "arctic_480b",
@@ -54,7 +59,12 @@ _ARCHS = {
     "chatglm3-6b": "chatglm3_6b",
     "gemma3-12b": "gemma3_12b",
 }
-PORTED = ("rwkv6-3b",)
+PORTED = ("rwkv6-3b", "zamba2-7b", "qwen3-8b", "starcoder2-15b",
+          "chatglm3-6b", "gemma3-12b", "chameleon-34b")
+# where the work of each architecture not ported yet is queued
+_QUEUED = {"mixtral-8x22b": "Queue 1 item 4 (models/moe.py)",
+           "arctic-480b": "Queue 1 item 4 (models/moe.py)",
+           "whisper-large-v3": "Queue 1 item 5 (models/encdec.py)"}
 
 
 def list_archs() -> list[str]:
@@ -66,7 +76,7 @@ def get_arch(name: str) -> ArchSpec:
         raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     if name not in PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP.md, Queue 1 item 15);"
+            f"arch {name!r} is not ported yet (ROADMAP.md, {_QUEUED[name]});"
             f" ported: {list(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[name]}")
     return mod.SPEC

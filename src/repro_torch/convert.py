@@ -71,12 +71,10 @@ def lm_params_from_jax(tree, cfg, device="cpu") -> dict:
 
     JAX stacks each pattern position's layers as [n_cycles, ...] leaves
     under tree["layers"] (a list over pattern positions) plus an unstacked
-    tree["tail"]; the port keeps one dict per layer in depth order.  Leaves
-    become tensors of `cfg.dtype` (a torch dtype) on `device`.
+    tree["tail"]; the port keeps one dict per layer in depth order.
+    Zamba2's shared block (tree["shared"], one dict) is carried as it is.
+    Leaves become tensors of `cfg.dtype` (a torch dtype) on `device`.
     """
-    if "shared" in tree:
-        raise NotImplementedError("shared attention blocks are not ported "
-                                  "yet (ROADMAP.md, Queue 1 item 15)")
     p = len(cfg.pattern)
     layers = [_cycle(tree["layers"][i], c) for c in range(cfg.cycles)
               for i in range(p)] + list(tree.get("tail", []))
@@ -84,6 +82,8 @@ def lm_params_from_jax(tree, cfg, device="cpu") -> dict:
     out = {"embed": conv(tree["embed"]),
            "layers": [conv(layer) for layer in layers],
            "final_norm": conv(tree["final_norm"])}
+    if "shared" in tree:
+        out["shared"] = conv(tree["shared"])
     if "unembed" in tree:
         out["unembed"] = conv(tree["unembed"])
     return out

@@ -4,7 +4,7 @@
     on simulated traces of a registered system (simulate_batch -> windows
     -> fit -> recover -> reconstruction MSE), on the card.
   --arch <id>: LM training is not ported yet (ROADMAP.md, Queue 1 item
-    15); it raises NotImplementedError.
+    6); it raises NotImplementedError.
 
     PYTHONPATH=src python -m repro_torch.launch.train --merinda f8_crusader --steps 300
 
@@ -85,7 +85,7 @@ def main(argv=None) -> None:
         train_merinda(args)
     elif args.arch:
         raise NotImplementedError("LM training (--arch) is not ported yet: "
-                                  "ROADMAP.md, Queue 1 item 15")
+                                  "ROADMAP.md, Queue 1 item 6")
     else:
         raise SystemExit("pass --arch or --merinda")
 

@@ -1,17 +1,21 @@
-"""Shared layers of the LM zoo, as far as RWKV-6 needs them.
+"""Shared layers of the LM zoo: dense, norms, per-head q/k norms, the MLPs
+(swiglu, geglu, gelu, relu2), embeddings and rotary position embeddings.
 
 Functional, like the JAX package: parameters are plain dicts of tensors and
 every function is `f(params, x, ...) -> y`.  The JAX package's sharding
-annotations are no-ops on one device and are dropped.
+annotations are no-ops on one device and are dropped.  Its
+`sinusoidal_positions` comes with the encoder-decoder model.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["dense_init", "dense", "norm_init", "apply_norm", "embed_init",
-           "embed_lookup", "unembed"]
+__all__ = ["dense_init", "dense", "norm_init", "apply_norm", "qk_norm_init",
+           "apply_qk_norm", "mlp_init", "mlp", "embed_init", "embed_lookup",
+           "unembed", "rope_frequencies", "apply_rope"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -59,6 +63,52 @@ def apply_norm(params: dict, x: torch.Tensor, kind: str = "rmsnorm",
     return y.to(x.dtype)
 
 
+def qk_norm_init(head_dim: int, kind: str = "rmsnorm", dtype=torch.float32,
+                 device=None) -> dict:
+    """Per-head q/k norms (qwen3 / gemma3 RMS, chameleon LayerNorm)."""
+    return {"q": norm_init(head_dim, kind, dtype, device),
+            "k": norm_init(head_dim, kind, dtype, device)}
+
+
+def apply_qk_norm(params: dict, q, k, kind: str = "rmsnorm"):
+    return (apply_norm(params["q"], q, kind), apply_norm(params["k"], k, kind))
+
+
+# --------------------------------------------------------------------------- #
+# MLP (swiglu / geglu / gelu / relu2)
+# --------------------------------------------------------------------------- #
+def _gelu(x):
+    """The tanh form, as jax.nn.gelu(approximate=True)."""
+    return F.gelu(x, approximate="tanh")
+
+
+_GATED = {"swiglu": F.silu, "geglu": _gelu}
+_PLAIN = {"gelu": _gelu, "relu2": lambda x: torch.square(F.relu(x))}
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+             kind: str = "swiglu", dtype=torch.float32) -> dict:
+    p = {"up": dense_init(gen, d_model, d_ff, dtype),
+         "down": dense_init(gen, d_ff, d_model, dtype)}
+    if kind in _GATED:
+        p["gate"] = dense_init(gen, d_model, d_ff, dtype)
+    return p
+
+
+def mlp(params: dict, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    """Position-wise FFN, in the input dtype."""
+    if kind in _GATED:
+        h = _GATED[kind](dense(params["gate"], x)) * dense(params["up"], x)
+    elif kind in _PLAIN:
+        h = _PLAIN[kind](dense(params["up"], x))
+    else:
+        raise ValueError(kind)
+    return dense(params["down"], h)
+
+
+# --------------------------------------------------------------------------- #
+# Embeddings
+# --------------------------------------------------------------------------- #
 def embed_init(gen: torch.Generator, vocab: int, d_model: int,
                dtype=torch.float32) -> dict:
     w = torch.randn((vocab, d_model), dtype=torch.float32, device=gen.device,
@@ -72,8 +122,9 @@ def embed_lookup(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["w"][tokens]
 
 
-def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """x [..., d] -> f32 logits [..., V].
+def unembed(params: dict, x: torch.Tensor,
+            scale: float | None = None) -> torch.Tensor:
+    """x [..., d] -> f32 logits [..., V], times `scale` if given.
 
     A bf16 table on the card goes through one bf16 GEMM with an f32 output
     (`torch.mm(..., out_dtype=torch.float32)`): the product accumulates in
@@ -90,4 +141,49 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
         logits = torch.mm(x2, w.t(), out_dtype=torch.float32)
     else:
         logits = torch.mm(x2.to(torch.float32), w.to(torch.float32).t())
+    if scale is not None:
+        logits = logits * scale
     return logits.reshape(*lead, w.shape[0])
+
+
+# --------------------------------------------------------------------------- #
+# Rotary position embeddings (neox, partial/interleaved)
+# --------------------------------------------------------------------------- #
+def rope_frequencies(head_dim: int, theta: float, fraction: float = 1.0,
+                     device=None):
+    """Inverse frequencies (f32) for the rotated sub-dimension, and its
+    width."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32,
+                                        device=device) / rot))
+    return inv, rot
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               theta: float = 1e4, fraction: float = 1.0,
+               interleaved: bool = False) -> torch.Tensor:
+    """x: [B, T, H, dh], positions: [B, T] (absolute token positions).
+
+    fraction < 1 rotates only the first `fraction * dh` dims (chatglm3);
+    `interleaved` pairs (0,1), (2,3), ... instead of neox half-splitting.
+    Angles and their cos/sin in f32; the rotation runs in the input dtype,
+    with cos and sin cast to it first, as the JAX package does.
+    """
+    dh = x.shape[-1]
+    inv, rot = rope_frequencies(dh, theta, fraction, x.device)
+    ang = positions[..., None].to(torch.float32) * inv         # [B, T, rot/2]
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    xr, xp = x[..., :rot], x[..., rot:]
+    if interleaved:
+        x1, x2 = xr[..., 0::2], xr[..., 1::2]
+        r1 = x1 * cos - x2 * sin
+        r2 = x2 * cos + x1 * sin
+        rotated = torch.stack([r1, r2], dim=-1).reshape(xr.shape)
+    else:
+        half = rot // 2
+        x1, x2 = xr[..., :half], xr[..., half:]
+        rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                            dim=-1)
+    return torch.cat([rotated.to(x.dtype), xp], dim=-1)

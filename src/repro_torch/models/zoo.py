@@ -1,5 +1,5 @@
 """Model API: what serve/engine.py calls, for the decoder-only LMs the port
-runs.
+runs (attention, RWKV-6 and Mamba-2 blocks, Zamba2's shared block).
 
 `build(cfg)` returns a ModelApi:
     init(seed, device=None)            -> params
@@ -7,8 +7,9 @@ runs.
     decode(params, cache, tokens1)     -> (cache, logits)
     cache_init(B, max_len, device=None)-> zeroed cache
 
-The JAX package's `loss`, `param_specs`, `cache_specs` and `batch_specs`
-come with the training slice.
+The JAX package's `loss` and `batch_specs` come with LM training
+(ROADMAP.md, Queue 1 item 6), `param_specs` and `cache_specs` with item 7,
+and its encoder-decoder build with item 5.
 """
 from __future__ import annotations
 
@@ -33,10 +34,6 @@ class ModelApi:
 
 
 def build(cfg: LMConfig) -> ModelApi:
-    if cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP.md, Queue 1 item 15)")
     tfm.check_supported(cfg)
 
     def lm_prefill(params, batch, max_len):

@@ -2,12 +2,15 @@
 
 `ServeEngine` keeps a fixed decode batch of `slots`; requests are admitted
 into free slots (prefill, which on the card runs the linear-scan kernel in
-every RWKV-6 layer), stepped together (one decode_step for the whole
-batch), and retired on EOS or length.  Greedy or temperature sampling.
+every RWKV-6 and Mamba-2 layer), stepped together (one decode_step for the
+whole batch), and retired on EOS or length.  Greedy or temperature
+sampling.
 
-A request's batch-1 prefill cache is copied into its slot in place, along
-the cache's batch axis (models/kv_cache.py: axis 0 of every leaf).  The
-engine runs without autograd.
+A request's batch-1 prefill cache is copied into its slot in place, leaf
+by leaf along the cache's batch axis (models/kv_cache.py: axis 0 of every
+tensor leaf), whatever the tree holds: per-layer recurrent states,
+attention k/v/pos, Zamba2's shared-block caches.  The engine runs without
+autograd.
 """
 from __future__ import annotations
 
@@ -59,12 +62,17 @@ class ServeEngine:
 
     def _write_slot(self, slot: int, src_cache):
         """Copy a batch-1 prefill cache into slot `slot` of the batched
-        cache, in place."""
-        for dst, src in zip(self.cache["layers"], src_cache["layers"]):
-            for name, t in dst.items():
-                t.select(BATCH_AXIS, slot).copy_(src[name].select(BATCH_AXIS,
-                                                                  0))
-        self.cache["pos"][slot] = src_cache["pos"][0]
+        cache, in place, walking both trees together."""
+        def merge(dst, src):
+            if isinstance(dst, dict):
+                for name in dst:
+                    merge(dst[name], src[name])
+            elif isinstance(dst, list):
+                for d, s in zip(dst, src):
+                    merge(d, s)
+            else:
+                dst.select(BATCH_AXIS, slot).copy_(src.select(BATCH_AXIS, 0))
+        merge(self.cache, src_cache)
 
     def free_slots(self) -> list[int]:
         return [s for s in range(self.slots) if s not in self.active]

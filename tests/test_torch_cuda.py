@@ -24,7 +24,10 @@ the saved inputs).  The linear scan (RWKV-6 prefill: H=40, K=V=64, chunk
 64; plus a short, a wide, an odd, a long (B*H=160, T=4096), a ragged
 (T=2047) and a 24-row-chunk shape) is held to its plain chunked version at
 rtol = atol = 2e-4, the JAX package's f32 tolerance: both sides upcast the
-same bf16 or f32 values and sum in f32 in another order.
+same bf16 or f32 values and sum in f32 in another order; so is the scan in
+ssd mode on Mamba-2's operands (zamba2-7b's H=112, K=V=64 over 2048
+tokens, and the SMOKE width K=V=16).  A 2-layer zamba2-7b at full width
+in f32, card against CPU (prefill and 2 decode steps, 1e-3).
 """
 import numpy as np
 import pytest
@@ -370,6 +373,91 @@ def test_linear_scan_kernel_carry_and_strong_decay(cuda, mode):
     torch.testing.assert_close(torch.cat([o1, o2], dim=2), o, rtol=2e-4,
                                atol=2e-4)
     torch.testing.assert_close(s2, s, rtol=2e-4, atol=2e-4)
+
+
+def _mamba2_operands(dev, B, H, T, K, V, dtype, seed):
+    """The scan's operands as models/mamba2.py builds them: q = C_t and
+    k = B_t shared by every head, v = dt * x, w = -exp(A_log) * dt one
+    value a head broadcast over K, A_log = log(linspace(1, 16, H)) as
+    mamba2_init draws it and dt = softplus(N(0, 2) + dt_bias), so a step
+    decays by up to exp(-16 dt) with dt reaching several units."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    C = f32(rng.normal(size=(B, 1, T, K)))
+    Bt = f32(rng.normal(size=(B, 1, T, K)))
+    dt_bias = np.log(np.expm1(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                                 H))))
+    dt = torch.nn.functional.softplus(
+        f32(2.0 * rng.normal(size=(B, H, T)) + dt_bias[None, :, None]))
+    a = torch.linspace(1.0, 16.0, H, device=dev)
+    x = f32(rng.normal(size=(B, H, T, V))).to(dtype)
+    return (C.to(dtype).expand(B, H, T, K), Bt.to(dtype).expand(B, H, T, K),
+            x * dt[..., None].to(dtype),
+            (-a[None, :, None] * dt)[..., None].expand(B, H, T, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["zamba2 H=112 K=V=64",
+                                   "smoke H=8 K=V=16"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_linear_scan_kernel_at_mamba2_operands(cuda, width, dtype):
+    """ssd mode on Mamba-2's own operands: zamba2-7b's 112 heads of
+    K = V = 64 over a 2048-token prefill, and the SMOKE width K = V = 16,
+    fresh and from a carried state."""
+    H, K, T = (112, 64, 2048) if width.startswith("zamba2") else (8, 16, 333)
+    q, k, v, w = _mamba2_operands(cuda, 1, H, T, K, K, dtype, K)
+    s0 = 0.1 * torch.randn(1, H, K, K, device=cuda)
+    for init in (None, s0):
+        with torch.no_grad():
+            o, s = linear_scan(q, k, v, w, mode="ssd", initial_state=init)
+        torch.cuda.synchronize()
+        ro, rs = linear_scan_chunked(q, k, v, w, mode="ssd",
+                                     initial_state=init)
+        assert torch.isfinite(o).all() and torch.isfinite(s).all()
+        torch.testing.assert_close(o, ro, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(s, rs, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_zamba2_prefill_card_against_cpu(cuda):
+    """zamba2-7b at full width, 2 layers (no whole cycle: the shared block
+    runs once, before the tail), f32: the same weights on the card and on
+    the CPU give prefill logits and 2 decode steps within 1e-3 (3584- and
+    14336-long f32 dot products summed in another order), equal greedy
+    tokens, and the prefill launched the scan once a layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    cfg = get_arch("zamba2-7b").config.with_(n_layers=2,
+                                             dtype=torch.float32)
+    params = tfm.init_params(cfg, seed=3, device=cuda)
+    host = _to_cpu(params)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, size=(1, 200)))
+    out = []
+    with torch.no_grad():
+        for dev, p in ((cuda, params), ("cpu", host)):
+            before = linear_scan.launches
+            cache, logits = tfm.prefill(cfg, p, prompt.to(dev), 210)
+            launched = linear_scan.launches - before
+            steps = [logits.cpu()]
+            for _ in range(2):
+                tok = torch.argmax(logits, dim=-1)
+                cache, logits = tfm.decode_step(cfg, p, cache, tok)
+                steps.append(logits.cpu())
+            out.append((launched, steps))
+    assert out[0][0] == cfg.n_layers and out[1][0] == 0
+    for card, cpu in zip(out[0][1], out[1][1]):
+        assert torch.argmax(card) == torch.argmax(cpu)
+        torch.testing.assert_close(card, cpu, rtol=1e-3, atol=1e-3)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
 
 
 @pytest.mark.cuda

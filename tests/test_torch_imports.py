@@ -34,13 +34,15 @@ def test_every_module_imports_without_jax():
                                "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     assert len(_modules()) > 20
-    # the crash-safety slice's modules and the fleet slice's are among them
+    # the crash-safety, fleet and LM-zoo slices' modules are among them
     assert {"repro_torch.train.checkpoint", "repro_torch.twin.recovery",
             "repro_torch.data.pipeline",
             "repro_torch.distributed.fault_tolerance",
             "repro_torch.twin.service", "repro_torch.twin.wire",
             "repro_torch.twin.sharded",
-            "repro_torch.twin.federation"} <= set(_modules())
+            "repro_torch.twin.federation", "repro_torch.models.attention",
+            "repro_torch.models.mamba2",
+            "repro_torch.configs.zamba2_7b"} <= set(_modules())
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -86,17 +88,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                 device="cpu")
     assert params["gru"]["wh"].device == torch.device("cpu")
 
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import PORTED, get_arch
     from repro_torch.models.zoo import build
     from repro_torch.serve.engine import ServeEngine
-    api = build(get_arch("rwkv6-3b").smoke)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ServeEngine(api)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        api.init(0)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        api.cache_init(2, 64)
-    assert ServeEngine(api, device="cpu").device == torch.device("cpu")
+    assert len(PORTED) == 7
+    for arch in PORTED:
+        api = build(get_arch(arch).smoke)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServeEngine(api)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.init(0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.cache_init(2, 64)
+        assert ServeEngine(api, device="cpu").device == torch.device("cpu")
 
     from repro_torch.core.emily import Emily, EmilyConfig
     from repro_torch.core.pinn_sr import PinnSR, PinnSRConfig

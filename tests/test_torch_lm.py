@@ -75,13 +75,13 @@ def test_config_transcribed_from_jax():
     assert full.dtype == torch.bfloat16 and CFG.dtype == torch.float32
     assert (CFG.n_layers, CFG.d_model, CFG.rwkv_head_dim, CFG.vocab) == (
         JCFG.n_layers, JCFG.d_model, JCFG.rwkv_head_dim, JCFG.vocab)
-    assert PORTED == ("rwkv6-3b",) and "qwen3-8b" in list_archs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        get_arch("qwen3-8b")
+    assert "rwkv6-3b" in PORTED and "mixtral-8x22b" in list_archs()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        get_arch("mixtral-8x22b")
     with pytest.raises(KeyError):
         get_arch("gpt-2")
-    with pytest.raises(NotImplementedError, match="attn"):
-        build(CFG.with_(pattern=("rwkv6", "attn")))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        build(CFG.with_(pattern=("rwkv6", "attn"), n_experts=4))
 
 
 def test_init_params_match_jax_tree(jax_params, port_params):

@@ -239,6 +239,6 @@ def test_train_merinda_runs_on_the_cpu(capsys):
     assert theta.shape == (2, 10) and np.isfinite(mse)
     out = capsys.readouterr().out
     assert "reconstruction MSE" in out and "dy0/dt" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         from repro_torch.launch.train import main
         main(["--arch", "qwen3-8b"])
