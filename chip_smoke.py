@@ -98,6 +98,27 @@ each of which raises on failure (the script then exits nonzero):
              chatglm3 and chameleon 2 layers, gemma3 6 (a local x5 + global
              cycle) with an 1,100-token prompt, past its 1,024 window, so
              the local layers' ring caches wrap;
+ 11. MoE and encoder-decoder (run before 8): mixtral-8x22b at full width,
+             12 of its 56 layers (d_model 6144, GQA 48/8, 8 experts top-2
+             of d_ff 16384, window 4096, capacity 1.25, group 512), and
+             arctic-480b at full width, 2 of its 35 layers (d_model 7168,
+             GQA 56/8, 128 experts top-2 of d_ff 4864 plus the dense FFN
+             of 4864), bf16, random weights from a seed, each behind the
+             4-slot ServeEngine with phase 5's protocol, every prompt of
+             1,024 tokens or more rounded down to a multiple of 512 (the
+             MoE groups must divide it); a 1,025-token prefill must raise
+             moe_apply's ValueError on the card; one 2,048-token prefill's
+             routing gated (no expert keeps more than C a group, the kept
+             total equals the host's recount of the router's top-k);
+             whisper-large-v3 whole (32 + 32 layers, d_model 1280) with
+             max_len 1,500, 8 requests of 1,500 frames (drawn x 0.1) and a
+             4-token prompt, 32 new tokens; each model's prefill and 4
+             decode steps profiled; then card against CPU in f32, the
+             same weights, prefill and 8 greedy decode steps (tokens
+             equal, logits within LM_TOL, MoE routing equal call by call,
+             the router's smallest top-k margin printed): mixtral 2
+             layers with a 300-token prompt, whisper 4 + 4 layers over
+             1,500 frames, arctic at its SMOKE config;
   8. time    each kernel and its plain version at every serving and
              offline shape (GRU: the online tick's refit, the offline
              fleet's, F-8 training's and recovery's, Table I's
@@ -108,8 +129,8 @@ each of which raises on failure (the script then exits nonzero):
              apart.
 
 Kernel launch counts are set to 0 just before each path (tick, predict,
-scenario, the crash-safety runs, LM prefill and decode of rwkv6, zamba2
-and qwen3, the offline ones:
+scenario, the crash-safety runs, LM prefill and decode of rwkv6, zamba2,
+qwen3, mixtral, arctic and whisper, the offline ones:
 simulate, each Table I fit and its scoring, F-8 training and recovery,
 the offline fleet; and phase 9's in-process runs) and read just after it;
 a path that launches none of its kernels, or one it does not run, fails.
@@ -176,6 +197,24 @@ ZOO_PARITY_STEPS = 8
 # the scan's operands are recorded from this zamba2 layer of a prefill of
 # LM_PROMPTS[1] tokens (outside the counted run)
 ZOO_RECORD_LAYER = 40
+# phase 11, the MoE LMs and the encoder-decoder, served at full width with
+# phase 5's protocol (arch -> (prefix, layers)): mixtral cut to 12 of its
+# 56 layers (5.01 GB of bf16 a layer: 56 are 281 GB), arctic to 2 of 35
+# (27.2 GB a layer), whisper whole (32 + 32 layers), its requests each
+# Whisper's 30-s window after the conv frontend (1,500 frames) and a
+# 4-token decoder prompt, its engine's max_len 1,500 (the JAX package's
+# zoo sizes the cross caches at max_len).  A prefill of MOE_REFUSED tokens
+# must raise (its groups do not divide it).  Card against CPU in f32:
+# mixtral 2 layers at full width (about 20 GB a side), whisper 4 + 4
+# layers, arctic its SMOKE config (one full-width f32 layer is 54 GB a
+# side)
+MOE_SERVED = {"mixtral-8x22b": ("lm_mixtral", 12),
+              "arctic-480b": ("lm_arctic", 2)}
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 4
+MOE_REFUSED = 1025
+PARITY_11 = {"mixtral-8x22b": dict(layers=2, prompt_len=300),
+             "whisper-large-v3": dict(layers=4, prompt_len=WHISPER_PROMPT),
+             "arctic-480b": dict(smoke=True, prompt_len=300)}
 # the kernels each serving path must launch (the LM decode path none)
 # the CUDA kernels of csrc/, as the profiler names them
 OWN_KERNELS = ("gru_scan_kernel", "rk4_poly_kernel", "chunk_state_kernel",
@@ -188,6 +227,11 @@ PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
                 "lm_zamba2_prefill": ("linear_scan",),
                 "lm_zamba2_decode": (),
                 "lm_qwen3_prefill": (), "lm_qwen3_decode": (),
+                # the MoE LMs and the encoder-decoder: einsums and
+                # attention only
+                "lm_mixtral_prefill": (), "lm_mixtral_decode": (),
+                "lm_arctic_prefill": (), "lm_arctic_decode": (),
+                "lm_whisper_prefill": (), "lm_whisper_decode": (),
                 # offline recovery: simulation; Table I's fits (EMILY's and
                 # PINN+SR's run plain PyTorch only) and its scoring (MERINDA's
                 # recover encodes; every score integrates); F-8 training,
@@ -1381,26 +1425,74 @@ def _n_params(tree) -> int:
 def _describe(cfg) -> str:
     kinds = cfg.layer_kinds()
     parts = [f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds)]
+    if cfg.enc_layers:
+        parts = [f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder"]
     if cfg.shared_every:
         from repro_torch.models.kv_cache import n_shared
         parts.append(f"{n_shared(cfg)} shared-block invocations "
                      f"({cfg.shared_n_heads} heads of "
                      f"{2 * cfg.d_model // cfg.shared_n_heads})")
+    if cfg.n_experts:
+        parts.append(f"{cfg.n_experts} experts top-{cfg.top_k}, capacity "
+                     f"{cfg.moe_capacity}, group {cfg.moe_group_size}"
+                     + (f", dense FFN {cfg.dense_ff}" if cfg.dense_ff
+                        else ""))
     return (f"{cfg.name}: {cfg.n_layers} layers ({', '.join(parts)}), "
             f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
             f"{cfg.dtype}")
 
 
+def _prompt_lens(rng):
+    """Phase 5's LM_REQUESTS prompt lengths in LM_PROMPTS (not all
+    multiples of 64)."""
+    lens = rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1, size=LM_REQUESTS)
+    if np.all(lens % 64 == 0):
+        lens[0] += 1
+    return lens
+
+
+def _lm_requests(cfg, rng) -> list[dict]:
+    return [dict(prompt=rng.integers(0, cfg.vocab, size=n))
+            for n in _prompt_lens(rng)]
+
+
+def _moe_requests(cfg, rng) -> list[dict]:
+    """Phase 5's lengths, each of 2 groups or more rounded down to a
+    multiple of the MoE group, which moe_apply (as the JAX package's)
+    needs: N tokens make N // group groups that must divide N."""
+    lens = _prompt_lens(rng)
+    g = cfg.moe_group_size
+    cut = np.where(lens >= 2 * g, lens // g * g, lens)
+    print(f"{cfg.name}: prompt lengths drawn {lens.tolist()}, served "
+          f"{cut.tolist()} (from {2 * g} tokens on, multiples of {g})")
+    return [dict(prompt=rng.integers(0, cfg.vocab, size=n)) for n in cut]
+
+
+def _whisper_requests(cfg, rng) -> list[dict]:
+    """WHISPER_FRAMES frame embeddings a request, drawn x 0.1 as
+    tests/test_archs_smoke.py draws them, and a WHISPER_PROMPT-token
+    decoder prompt."""
+    return [dict(prompt=rng.integers(0, cfg.vocab, size=WHISPER_PROMPT),
+                 enc_x=(rng.normal(size=(WHISPER_FRAMES, cfg.d_model))
+                        * 0.1).astype(np.float32))
+            for _ in range(LM_REQUESTS)]
+
+
 def serve_lm(paths: dict, arch: str = "rwkv6-3b", prefix: str = "lm",
-             after=None):
-    """`arch` at full width behind a 4-slot engine: 8 greedy requests,
-    admitted as slots free up; every admit counted on the <prefix>_prefill
-    path and every decode step on <prefix>_decode.  The prefill path must
-    launch the scan once for every RWKV-6 or Mamba-2 layer of every
-    request.  `after(api, params)` runs last, outside the counted runs."""
+             after=None, layers: int | None = None, requests=_lm_requests,
+             max_len: int = LM_PROMPTS[1] + LM_NEW):
+    """`arch` at full width (its first `layers` layers if given) behind a
+    4-slot engine: 8 greedy requests (`requests(cfg, rng)`: each a dict of
+    Request fields), admitted as slots free up; every admit counted on the
+    <prefix>_prefill path and every decode step on <prefix>_decode.  The
+    prefill path must launch the scan once for every RWKV-6 or Mamba-2
+    layer of every request.  `after(api, params)` runs last, outside the
+    counted runs."""
     from repro_torch.configs import get_arch
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = get_arch(arch).config
+    if layers is not None:
+        cfg = cfg.with_(n_layers=layers)
     pre_path, dec_path = f"{prefix}_prefill", f"{prefix}_decode"
     finite = []
     api = _lm_api(cfg, finite)
@@ -1411,20 +1503,16 @@ def serve_lm(paths: dict, arch: str = "rwkv6-3b", prefix: str = "lm",
     print(f"{_describe(cfg)}: {_n_params(params) / 1e9:.3f}B parameters, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"drawn in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(7)
-    lens = rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1, size=LM_REQUESTS)
-    if np.all(lens % 64 == 0):
-        lens[0] += 1
-    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lens]
-    engine = ServeEngine(api, slots=LM_SLOTS,
-                         max_len=LM_PROMPTS[1] + LM_NEW, seed=0)
+    fields = requests(cfg, np.random.default_rng(7))
+    lens = np.array([len(f["prompt"]) for f in fields])
+    engine = ServeEngine(api, slots=LM_SLOTS, max_len=max_len, seed=0)
     engine.load(params)
     # warm-up outside the counted run: cuBLAS handles, allocator pools
-    engine.generate([Request(rid=-1, prompt=prompts[0][:100],
-                             max_new_tokens=2)])
+    engine.generate([Request(rid=-1, **dict(
+        fields[0], prompt=fields[0]["prompt"][:100]), max_new_tokens=2)])
     torch.cuda.synchronize()
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW)
-            for i, p in enumerate(prompts)]
+    reqs = [Request(rid=i, max_new_tokens=LM_NEW, **f)
+            for i, f in enumerate(fields)]
     pending, done = list(reqs), []
     prefill_s = decode_s = 0.0
     admitted = steps = 0
@@ -1462,14 +1550,18 @@ def serve_lm(paths: dict, arch: str = "rwkv6-3b", prefix: str = "lm",
           f"{sorted(lens.tolist())}), {LM_NEW} tokens each; {len(finite)} "
           f"logit rows finite; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    frames = sum(len(f["enc_x"]) for f in fields if "enc_x" in f)
     print(f"{cfg.name}: prefill {tokens} tokens in {prefill_s * 1e3:.2f} ms: "
-          f"{tokens / prefill_s:.1f} tokens/s; decode {steps} steps of "
-          f"{LM_SLOTS} slots in {decode_s * 1e3:.2f} ms: "
-          f"{decode_s * 1e3 / steps:.3f} ms per step")
+          f"{tokens / prefill_s:.1f} tokens/s"
+          + (f" (encoder {frames} frames: {frames / prefill_s:.1f} "
+             "frames/s)" if frames else "")
+          + f"; decode {steps} steps of {LM_SLOTS} slots in "
+          f"{decode_s * 1e3:.2f} ms: {decode_s * 1e3 / steps:.3f} ms per "
+          "step")
     print(f"{cfg.name}: request 0 tokens: {reqs[0].generated}")
     # after the counted run: one more prefill, then decode steps, profiled
-    extra = Request(rid=LM_REQUESTS, prompt=prompts[-1][:1024],
-                    max_new_tokens=LM_PROFILE_STEPS + 1)
+    extra = Request(rid=LM_REQUESTS, max_new_tokens=LM_PROFILE_STEPS + 1,
+                    **dict(fields[-1], prompt=fields[-1]["prompt"][:1024]))
     profiled(f"{cfg.name} prefill of {len(extra.prompt)} tokens",
              lambda: engine.admit(extra))
     profiled(f"{LM_PROFILE_STEPS} {cfg.name} decode steps (1 active slot)",
@@ -1489,47 +1581,109 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def _routing_recorder(side: list):
+    """Patch moe.router_topk to record each call's router probabilities
+    [G, n, E] and kept assignments (the combine's support), with its top_k
+    and capacity, on the host under the label in side[0].  Returns
+    (records by label, restore)."""
+    from repro_torch.models import moe
+    real, rec = moe.router_topk, {}
+
+    def record(logits, top_k, capacity):
+        combine, aux = real(logits, top_k, capacity)
+        rec.setdefault(side[0], []).append((
+            torch.softmax(logits.to(torch.float32), -1).cpu(),
+            (combine > 0).cpu(), top_k, capacity))
+        return combine, aux
+    moe.router_topk = record
+
+    def restore():
+        moe.router_topk = real
+    return rec, restore
+
+
+def _margin(probs, top_k: int) -> float:
+    """The smallest gap between a token's k-th and (k+1)-th router
+    probability."""
+    top = torch.sort(probs, -1, descending=True).values
+    return float((top[..., top_k - 1] - top[..., top_k]).min())
+
+
 def lm_parity(dev, arch: str = "rwkv6-3b", layers: int = LM_PARITY_LAYERS,
               prompt_len: int = LM_PARITY_PROMPT,
-              steps: int = LM_PARITY_STEPS):
-    """`arch` at full width, `layers` layers, f32: the same weights (drawn
+              steps: int = LM_PARITY_STEPS, smoke: bool = False):
+    """`arch` at full width, `layers` layers (an encoder-decoder's encoder
+    too; `smoke`: its SMOKE config instead), f32: the same weights (drawn
     on the card) on the card and on the CPU give prefill logits within
     LM_TOL, and equal greedy tokens with logits within LM_TOL for `steps`
-    decode steps."""
+    decode steps.  An encoder-decoder's prompt has WHISPER_FRAMES frames;
+    an MoE's routing must be equal, call by call (every layer of the
+    prefill and of each decode step)."""
     from repro_torch.configs import get_arch
-    from repro_torch.models import transformer as tfm
-    cfg = get_arch(arch).config.with_(n_layers=layers, dtype=torch.float32)
+    from repro_torch.models.zoo import build
+    spec = get_arch(arch)
+    cfg = (spec.smoke if smoke else spec.config.with_(
+        n_layers=layers, enc_layers=layers if spec.config.enc_layers else 0))
+    cfg = cfg.with_(dtype=torch.float32)
+    api = build(cfg)
     t0 = time.perf_counter()
-    params = tfm.init_params(cfg, seed=1, device=dev)
+    params = api.init(seed=1, device=dev)
     cpu_params = _to(params, "cpu")
-    prompt = np.random.default_rng(8).integers(0, cfg.vocab,
-                                               size=(1, prompt_len))
+    rng = np.random.default_rng(8)
+    batch = {"tokens": rng.integers(0, cfg.vocab, size=(1, prompt_len))}
+    if cfg.enc_layers:
+        batch["enc_x"] = (rng.normal(size=(1, WHISPER_FRAMES, cfg.d_model))
+                          * 0.1).astype(np.float32)
+    side = ["card"]
+    routing, restore = (_routing_recorder(side) if cfg.n_experts
+                        else ({}, lambda: None))
     worst, toks = 0.0, []
-    with torch.no_grad():
-        caches, logits = [], []
-        for d, p in ((dev, params), ("cpu", cpu_params)):
-            c, lg = tfm.prefill(cfg, p, torch.as_tensor(prompt, device=d),
-                                prompt_len + steps)
-            caches.append(c)
-            logits.append(lg)
-        for step in range(steps + 1):
-            card, host = logits[0].cpu(), logits[1]
-            torch.testing.assert_close(card, host, **LM_TOL, msg=lambda m:
-                                       f"{arch} logits, step {step}: {m}")
-            worst = max(worst, float((card - host).abs().max()))
-            nxt = [int(torch.argmax(lg[0])) for lg in (card, host)]
-            if nxt[0] != nxt[1]:
-                raise RuntimeError(f"{arch} step {step}: card token "
-                                   f"{nxt[0]}, CPU {nxt[1]}")
-            toks.append(nxt[0])
-            if step == steps:
-                break
-            for i, (d, p) in enumerate(((dev, params), ("cpu", cpu_params))):
-                caches[i], logits[i] = tfm.decode_step(
-                    cfg, p, caches[i], torch.tensor([nxt[0]], device=d))
-    print(f"{_describe(cfg)}: prefill of {prompt_len} tokens + {steps} "
-          f"decode steps: greedy tokens equal ({toks}), logits max|card - "
-          f"CPU| {worst:.3e} ({time.perf_counter() - t0:.1f} s)")
+    try:
+        with torch.no_grad():
+            caches, logits = [], []
+            for side[0], d, p in (("card", dev, params),
+                                  ("cpu", "cpu", cpu_params)):
+                c, lg = api.prefill(p, {k: torch.as_tensor(v, device=d)
+                                        for k, v in batch.items()},
+                                    prompt_len + steps)
+                caches.append(c)
+                logits.append(lg)
+            for step in range(steps + 1):
+                card, host = logits[0].cpu(), logits[1]
+                torch.testing.assert_close(
+                    card, host, **LM_TOL,
+                    msg=lambda m: f"{arch} logits, step {step}: {m}")
+                worst = max(worst, float((card - host).abs().max()))
+                nxt = [int(torch.argmax(lg[0])) for lg in (card, host)]
+                if nxt[0] != nxt[1]:
+                    raise RuntimeError(f"{arch} step {step}: card token "
+                                       f"{nxt[0]}, CPU {nxt[1]}")
+                toks.append(nxt[0])
+                if step == steps:
+                    break
+                for i, (side[0], d, p) in enumerate((
+                        ("card", dev, params), ("cpu", "cpu", cpu_params))):
+                    caches[i], logits[i] = api.decode(
+                        p, caches[i], torch.tensor([nxt[0]], device=d))
+    finally:
+        restore()
+    note = ""
+    if cfg.n_experts:
+        card, host = routing["card"], routing["cpu"]
+        if len(card) != len(host) or not all(
+                torch.equal(a[1], b[1]) for a, b in zip(card, host)):
+            raise RuntimeError(f"{arch}: the card's MoE routing differs from "
+                               "the CPU's")
+        margin = lambda rec: min(_margin(r[0], cfg.top_k) for r in rec)
+        note = (f"; routing equal in all {len(card)} router calls ("
+                f"{cfg.n_layers} layers x {steps + 1} passes), smallest "
+                f"top-{cfg.top_k} margin {margin(card):.3e} (CPU "
+                f"{margin(host):.3e})")
+    print(f"{_describe(cfg)}: prefill of {prompt_len} tokens"
+          + (f" over {WHISPER_FRAMES} frames" if cfg.enc_layers else "")
+          + f" + {steps} decode steps: greedy tokens equal ({toks}), logits "
+          f"max|card - CPU| {worst:.3e}{note} "
+          f"({time.perf_counter() - t0:.1f} s)")
     del params, cpu_params
     torch.cuda.empty_cache()
 
@@ -1589,6 +1743,99 @@ def lm_zoo(dev, paths, worst):
         print(f"{arch}: {time.perf_counter() - t0:.1f} s")
     for arch, (layers, prompt) in ZOO_PARITY.items():
         lm_parity(dev, arch, layers, prompt, ZOO_PARITY_STEPS)
+
+
+def _host_kept(probs: np.ndarray, top_k: int, capacity: int) -> int:
+    """The kept assignments of slot-sequential routing, recounted on the
+    host from the router's probabilities [G, n, E]: a stable descending
+    order (ties to the lower expert), then, choice by choice and token by
+    token, an assignment is kept while its expert has had fewer than
+    `capacity` assignments before it (kept or dropped)."""
+    order = np.argsort(-probs, axis=-1, kind="stable")[..., :top_k]
+    kept = 0
+    for g in range(probs.shape[0]):
+        seen = np.zeros(probs.shape[-1], np.int64)
+        for j in range(top_k):
+            for e in order[g, :, j]:
+                kept += int(seen[e] < capacity)
+                seen[e] += 1
+    return kept
+
+
+def _moe_checks(api, params):
+    """An `after` for serve_lm on an MoE LM: a 1,025-token prefill (2
+    groups of 512 and one token over) must raise moe_apply's ValueError on
+    the card; then one prefill of LM_PROMPTS[1] tokens with every layer's
+    routing recorded: per group, no expert keeps more than C assignments
+    and no capacity slot holds two, and the kept total equals the host's
+    recount of the router's top-k."""
+    from repro_torch.models import moe
+    cfg, dev = api.cfg, params["embed"]["w"].device
+    try:
+        with torch.no_grad():
+            api.prefill(params, {"tokens": torch.zeros(
+                (1, MOE_REFUSED), dtype=torch.long, device=dev)},
+                MOE_REFUSED + 1)
+    except ValueError as e:
+        print(f"{cfg.name}: a {MOE_REFUSED}-token prefill is refused on the "
+              f"card: {e}")
+    else:
+        raise RuntimeError(f"{cfg.name}: a {MOE_REFUSED}-token prefill was "
+                           "not refused")
+    tokens = np.random.default_rng(10).integers(0, cfg.vocab,
+                                                size=(1, LM_PROMPTS[1]))
+    routing, restore = _routing_recorder(["served"])
+    try:
+        with torch.no_grad():
+            api.prefill(params, {"tokens": torch.as_tensor(tokens,
+                                                           device=dev)},
+                        LM_PROMPTS[1] + 1)
+    finally:
+        restore()
+    rec = routing["served"]
+    if len(rec) != cfg.n_layers:
+        raise RuntimeError(f"{cfg.name}: {len(rec)} router calls for "
+                           f"{cfg.n_layers} layers")
+    kept_by_layer, fullest = [], 0
+    for layer, (probs, kept, top_k, C) in enumerate(rec):
+        per_expert = kept.sum(dim=(1, 3))                       # [G, E]
+        fullest = max(fullest, int(per_expert.max()))
+        if int(per_expert.max()) > C or int(kept.sum(dim=1).max()) > 1:
+            raise RuntimeError(f"{cfg.name} layer {layer}: an expert keeps "
+                               f"{int(per_expert.max())} > C = {C}, or a "
+                               "capacity slot holds two tokens")
+        want = _host_kept(probs.numpy(), top_k, C)
+        if int(kept.sum()) != want:
+            raise RuntimeError(f"{cfg.name} layer {layer}: {int(kept.sum())} "
+                               f"assignments kept, the host recounts {want}")
+        kept_by_layer.append(want)
+    G, n, C = moe.moe_groups(LM_PROMPTS[1], cfg.n_experts, cfg.top_k,
+                             cfg.moe_capacity, cfg.moe_group_size)
+    total = G * n * cfg.top_k
+    print(f"{cfg.name}: routing of a {LM_PROMPTS[1]}-token prefill ({G} "
+          f"groups of {n}, C = {C}): at most {fullest} kept per expert and "
+          f"group; kept of {total} assignments by layer {kept_by_layer} "
+          f"(the host's recount equal); dropped "
+          f"{100 * (1 - sum(kept_by_layer) / (total * cfg.n_layers)):.2f}%")
+
+
+def moe_encdec(dev, paths):
+    """Phase 11: the MOE_SERVED LMs at full width and cut depth, then
+    whisper-large-v3 whole, each behind the 4-slot engine with phase 5's
+    protocol (MoE prompts rounded to whole groups; whisper's requests
+    WHISPER_FRAMES frames and a WHISPER_PROMPT-token prompt, max_len =
+    WHISPER_FRAMES); then PARITY_11 card against CPU in f32."""
+    for arch, (prefix, layers) in MOE_SERVED.items():
+        t0 = time.perf_counter()
+        serve_lm(paths, arch, prefix, after=_moe_checks, layers=layers,
+                 requests=_moe_requests)
+        print(f"{arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_lm(paths, "whisper-large-v3", "lm_whisper",
+             requests=_whisper_requests, max_len=WHISPER_FRAMES)
+    print(f"whisper-large-v3: {time.perf_counter() - t0:.1f} s")
+    for arch, kw in PARITY_11.items():
+        lm_parity(dev, arch, steps=ZOO_PARITY_STEPS, **kw)
 
 
 def profiled(what: str, fn, top: int = 8):
@@ -2545,6 +2792,13 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_zoo(dev, paths, worst)
     print(f"LM zoo phase: {time.perf_counter() - t0:.1f} s")
+
+    print("== 11. the MoE LMs and the encoder-decoder: mixtral-8x22b, "
+          "arctic-480b and whisper-large-v3 served at full width, card "
+          "against CPU")
+    t0 = time.perf_counter()
+    moe_encdec(dev, paths)
+    print(f"MoE and encoder-decoder phase: {time.perf_counter() - t0:.1f} s")
 
     print("== 8. kernel times at the serving and offline shapes")
     t0 = time.perf_counter()

@@ -1,9 +1,7 @@
 """Architecture registry: ``get_arch(<id>)`` -> full config + smoke config.
 
-The registry names every architecture the JAX package has; the ones not
-ported yet (MoE: mixtral, arctic; the encoder-decoder: whisper) raise
-NotImplementedError.  `SHAPES` are the JAX package's four
-input-shape cells.
+The registry names every architecture the JAX package has, and the port
+serves them all.  `SHAPES` are the JAX package's four input-shape cells.
 """
 from __future__ import annotations
 
@@ -12,7 +10,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 __all__ = ["SHAPES", "Shape", "ArchSpec", "get_arch", "list_archs",
-           "PORTED", "FULL_ATTN_SKIP"]
+           "FULL_ATTN_SKIP"]
 
 
 @dataclass(frozen=True)
@@ -59,12 +57,6 @@ _ARCHS = {
     "chatglm3-6b": "chatglm3_6b",
     "gemma3-12b": "gemma3_12b",
 }
-PORTED = ("rwkv6-3b", "zamba2-7b", "qwen3-8b", "starcoder2-15b",
-          "chatglm3-6b", "gemma3-12b", "chameleon-34b")
-# where the work of each architecture not ported yet is queued
-_QUEUED = {"mixtral-8x22b": "Queue 1 item 4 (models/moe.py)",
-           "arctic-480b": "Queue 1 item 4 (models/moe.py)",
-           "whisper-large-v3": "Queue 1 item 5 (models/encdec.py)"}
 
 
 def list_archs() -> list[str]:
@@ -74,9 +66,5 @@ def list_archs() -> list[str]:
 def get_arch(name: str) -> ArchSpec:
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP.md, {_QUEUED[name]});"
-            f" ported: {list(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[name]}")
     return mod.SPEC

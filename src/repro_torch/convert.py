@@ -14,7 +14,8 @@ import torch
 from repro_torch.train.optimizer import AdamState
 
 __all__ = ["merinda_params_from_jax", "baseline_params_from_jax",
-           "fleet_state_from_jax", "lm_params_from_jax"]
+           "fleet_state_from_jax", "lm_params_from_jax",
+           "whisper_params_from_jax"]
 
 
 def _tensors(tree, device, dtype=torch.float32):
@@ -59,8 +60,12 @@ def _cycle(tree, c: int):
 
 
 def _lm_tensors(tree, device, dtype):
+    """Leaves as `dtype` tensors, except an MoE router's, which stays f32
+    whatever the model's dtype (as the JAX package draws it)."""
     if isinstance(tree, dict):
-        return {k: _lm_tensors(v, device, dtype) for k, v in tree.items()}
+        return {k: _lm_tensors(v, device,
+                               torch.float32 if k == "router" else dtype)
+                for k, v in tree.items()}
     # via f32: torch cannot read numpy's bfloat16 (ml_dtypes) arrays
     return torch.tensor(np.asarray(tree, dtype=np.float32),
                         device=device).to(dtype)
@@ -72,8 +77,11 @@ def lm_params_from_jax(tree, cfg, device="cpu") -> dict:
     JAX stacks each pattern position's layers as [n_cycles, ...] leaves
     under tree["layers"] (a list over pattern positions) plus an unstacked
     tree["tail"]; the port keeps one dict per layer in depth order.
-    Zamba2's shared block (tree["shared"], one dict) is carried as it is.
-    Leaves become tensors of `cfg.dtype` (a torch dtype) on `device`.
+    Zamba2's shared block (tree["shared"], one dict) is carried as it is,
+    and so are an MoE layer's "moe" leaves (the expert stacks [n_cycles, E,
+    d, f] split per layer like any other) and arctic's dense "ffn".  Leaves
+    become tensors of `cfg.dtype` (a torch dtype) on `device`, the MoE
+    router f32.
     """
     p = len(cfg.pattern)
     layers = [_cycle(tree["layers"][i], c) for c in range(cfg.cycles)
@@ -86,4 +94,18 @@ def lm_params_from_jax(tree, cfg, device="cpu") -> dict:
         out["shared"] = conv(tree["shared"])
     if "unembed" in tree:
         out["unembed"] = conv(tree["unembed"])
+    return out
+
+
+def whisper_params_from_jax(tree, cfg, device="cpu") -> dict:
+    """`encdec.whisper_init` params of the JAX package -> the port's: the
+    stacked [L, ...] leaves of tree["enc_layers"] and tree["dec_layers"]
+    become lists of per-layer dicts; "embed", "dec_pos", "enc_norm" and
+    "dec_norm" are carried as they are, all as `cfg.dtype` on `device`."""
+    conv = lambda t: _lm_tensors(t, device, cfg.dtype)
+    out = {k: conv(tree[k])
+           for k in ("embed", "dec_pos", "enc_norm", "dec_norm")}
+    for side, n in (("enc_layers", cfg.enc_layers),
+                    ("dec_layers", cfg.n_layers)):
+        out[side] = [conv(_cycle(tree[side], i)) for i in range(n)]
     return out

@@ -16,9 +16,12 @@ attention (its kv_pos <= q_pos test).
 
 The cache is {"layers": [one entry per layer], "pos": [B] int32} and, with
 a shared block, "shared": [one entry per invocation] (cycles, plus one when
-there is a tail).  Unlike the JAX package, whose leaves carry a leading
-n_cycles axis for its layer scan, every leaf here has the batch on axis 0
-(BATCH_AXIS), which is what serve/engine.py writes a request's slot along.
+there is a tail).  The encoder-decoder's (`whisper_cache_init`) is
+{"self": [a full cache per decoder layer], "cross": [{"k", "v": [B, T_enc,
+kv, dh]} per decoder layer], "pos": [B]}.  Unlike the JAX package, whose
+leaves carry a leading n_cycles (or layer) axis for its layer scan, every
+leaf here has the batch on axis 0 (BATCH_AXIS), which is what
+serve/engine.py writes a request's slot along.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch.kernels.backend import resolve_device
 
-__all__ = ["cache_init", "BATCH_AXIS", "n_shared"]
+__all__ = ["cache_init", "whisper_cache_init", "BATCH_AXIS", "n_shared"]
 
 BATCH_AXIS = 0
 INT_MAX = torch.iinfo(torch.int32).max
@@ -94,3 +97,22 @@ def cache_init(cfg, B: int, max_len: int, device=None) -> dict:
                         head_dim=d_in // cfg.shared_n_heads)
             for _ in range(n_shared(cfg))]
     return cache
+
+
+def whisper_cache_init(cfg, B: int, max_len: int, T_enc: int | None = None,
+                       device=None) -> dict:
+    """Zeroed encoder-decoder cache: each decoder layer's self-attention
+    cache of `max_len` positions and its cross-attention K/V over `T_enc`
+    encoder frames (filled by prefill).  `T_enc=None` is `max_len`, as the
+    JAX package's zoo sizes it: a prefill cache over fewer frames then does
+    not fit the engine's slots (its copy_ raises), as JAX's does not.
+    `device=None` means the CUDA card (raises without one)."""
+    device = resolve_device(device)
+    T_enc = max_len if T_enc is None else T_enc
+    cross = lambda: torch.zeros((B, T_enc, cfg.n_kv_heads, cfg.head_dim),
+                                dtype=cfg.dtype, device=device)
+    return {"self": [_attn_entry(cfg, B, max_len, device)
+                     for _ in range(cfg.n_layers)],
+            "cross": [{"k": cross(), "v": cross()}
+                      for _ in range(cfg.n_layers)],
+            "pos": torch.zeros((B,), dtype=torch.int32, device=device)}

@@ -1,10 +1,10 @@
 """Shared layers of the LM zoo: dense, norms, per-head q/k norms, the MLPs
-(swiglu, geglu, gelu, relu2), embeddings and rotary position embeddings.
+(swiglu, geglu, gelu, relu2), embeddings, rotary position embeddings and
+the encoder's sinusoidal positions.
 
 Functional, like the JAX package: parameters are plain dicts of tensors and
 every function is `f(params, x, ...) -> y`.  The JAX package's sharding
-annotations are no-ops on one device and are dropped.  Its
-`sinusoidal_positions` comes with the encoder-decoder model.
+annotations are no-ops on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 __all__ = ["dense_init", "dense", "norm_init", "apply_norm", "qk_norm_init",
            "apply_qk_norm", "mlp_init", "mlp", "embed_init", "embed_lookup",
-           "unembed", "rope_frequencies", "apply_rope"]
+           "unembed", "rope_frequencies", "apply_rope",
+           "sinusoidal_positions"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -187,3 +188,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
         rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                             dim=-1)
     return torch.cat([rotated.to(x.dtype), xp], dim=-1)
+
+
+def sinusoidal_positions(T: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """The Whisper encoder's fixed position table [T, d]: sin then cos of
+    t * 10000^(-i / (half - 1)), computed in f32.  The divisor is
+    max(half - 1, 1), not half, as in the JAX package."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32, device=device)
+                     / max(half - 1, 1))
+    ang = (torch.arange(T, dtype=torch.float32, device=device)[:, None]
+           * freq[None, :])
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

@@ -1,5 +1,7 @@
 """Decoder-only LM assembly: attention ("attn", "swa", "local", "global"),
-RWKV-6 and Mamba-2 blocks, and Zamba2's weight-shared attention block.
+RWKV-6 and Mamba-2 blocks, Zamba2's weight-shared attention block, and the
+MoE FFN of the attention blocks (`n_experts`; arctic adds a parallel dense
+FFN of `dense_ff`).
 
 The JAX package stacks per-layer parameters as [n_cycles, ...] leaves and
 scans over cycles.  Here `params["layers"]` is a list with one parameter
@@ -10,15 +12,17 @@ before every layer l with l % len(pattern) == 0: at the top of every cycle
 and before the first tail layer, each invocation with its own cache.
 
 Paths:
-  * `forward`     -- logits for every position (no cache);
+  * `forward`     -- logits for every position and the MoE auxiliary
+                     loss (no cache);
   * `prefill`     -- the prompt through every layer, emitting the decode
                      cache; on the card each RWKV-6 and Mamba-2 layer
                      launches the linear-scan kernel once;
   * `decode_step` -- one token against the cache (no kernel).
 
 As in the JAX package, `forward` and `decode_step` apply `logit_softcap`
-and `prefill` does not.  MoE blocks, the encoder-decoder and training
-(`loss_fn`) raise NotImplementedError (ROADMAP.md, Queue 1 items 4-6).
+and `prefill` does not; prefill and decode drop the MoE auxiliary loss.
+The encoder-decoder is models/encdec.py; training (`loss_fn`) is not
+ported yet (ROADMAP.md, Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.kv_cache import cache_init
 from repro_torch.models.layers import (apply_norm, dense, dense_init,
@@ -39,7 +44,7 @@ from repro_torch.models.layers import (apply_norm, dense, dense_init,
                                        mlp_init, norm_init, unembed)
 
 __all__ = ["LMConfig", "init_params", "forward", "prefill", "decode_step",
-           "check_supported", "ATTN_KINDS"]
+           "ATTN_KINDS"]
 
 ATTN_KINDS = ("attn", "swa", "local", "global")
 
@@ -117,18 +122,6 @@ class LMConfig:
                 for i in range(self.n_layers)]
 
 
-def check_supported(cfg: LMConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md, Queue "
-            "1 item 4)")
-
-
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
@@ -140,7 +133,14 @@ def _block_init(gen, cfg: LMConfig, kind: str) -> dict:
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.qk_norm, cfg.qk_norm_kind, dt)
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, dt, dev)
-        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dt)
+        if cfg.n_experts:
+            p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.d_ff,
+                                        cfg.n_experts, cfg.mlp_kind, dt)
+            if cfg.dense_ff:
+                p["ffn"] = mlp_init(gen, cfg.d_model, cfg.dense_ff,
+                                    cfg.mlp_kind, dt)
+        else:
+            p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dt)
     elif kind == "rwkv6":
         p["rwkv"] = rw.rwkv6_init(gen, cfg.d_model, cfg.rwkv_head_dim,
                                   cfg.d_ff, dt)
@@ -175,7 +175,6 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from `seed`, drawn by a torch.Generator on the
     target device (billions of parameters are not drawn on the host).
     `device=None` means the CUDA card (raises without one)."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = {
@@ -205,8 +204,17 @@ def _attn_kwargs(cfg: LMConfig, kind: str) -> dict:
 
 
 def _ffn_apply(cfg: LMConfig, p, h):
-    """The dense MLP (MoE raises in check_supported)."""
-    return mlp(p["ffn"], h, cfg.mlp_kind)
+    """The dense MLP, the MoE, or arctic's MoE plus its dense residual FFN.
+    Returns (y, aux): the MoE auxiliary loss, 0.0 for a dense MLP."""
+    if cfg.n_experts:
+        y, aux = moe_mod.moe_apply(
+            p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.moe_capacity, group_size=cfg.moe_group_size,
+            mlp_kind=cfg.mlp_kind)
+        if cfg.dense_ff:
+            y = y + mlp(p["ffn"], h, cfg.mlp_kind)
+        return y, aux
+    return mlp(p["ffn"], h, cfg.mlp_kind), 0.0
 
 
 def _mamba_kwargs(cfg: LMConfig) -> dict:
@@ -233,8 +241,10 @@ def _fill_attn_cache(entry, k, v, positions):
 
 
 def _block(cfg: LMConfig, kind: str, p, x, positions, entry=None):
-    """Prefill / forward of one block, x: [B, T, d].  With `entry` (a fresh
-    cache entry) returns (x, filled entry), else (x, None)."""
+    """Prefill / forward of one block, x: [B, T, d].  Returns (x, entry,
+    aux): with `entry` (a fresh cache entry) the filled entry, else None;
+    aux is the MoE auxiliary loss (0.0 without one)."""
+    aux = 0.0
     if kind in ATTN_KINDS:
         h = apply_norm(p["norm1"], x, cfg.norm)
         y, (k, v) = attn.attention_apply(p["attn"], h, positions=positions,
@@ -244,7 +254,8 @@ def _block(cfg: LMConfig, kind: str, p, x, positions, entry=None):
         if entry is not None:
             entry = _fill_attn_cache(entry, k, v, positions)
         h = apply_norm(p["norm2"], x, cfg.norm)
-        x = x + _ffn_apply(cfg, p, h)
+        y, aux = _ffn_apply(cfg, p, h)
+        x = x + y
     elif kind == "rwkv6":
         h = apply_norm(p["norm1"], x, cfg.norm)
         y, (tm_last, wkv) = rw.rwkv6_time_mix(
@@ -262,7 +273,7 @@ def _block(cfg: LMConfig, kind: str, p, x, positions, entry=None):
         entry = {"conv": conv, "ssm": ssm}
     else:
         raise ValueError(kind)
-    return x, entry
+    return x, entry, aux
 
 
 def _block_decode(cfg: LMConfig, kind: str, p, x1, entry, position):
@@ -277,7 +288,7 @@ def _block_decode(cfg: LMConfig, kind: str, p, x1, entry, position):
             cache_kind="ring" if window else "full", **kw)
         x1 = x1 + y
         h = apply_norm(p["norm2"], x1, cfg.norm)
-        x1 = x1 + _ffn_apply(cfg, p, h)
+        x1 = x1 + _ffn_apply(cfg, p, h)[0]
     elif kind == "rwkv6":
         h = apply_norm(p["norm1"], x1, cfg.norm)[:, 0]
         y, tm_last, wkv = rw.rwkv6_time_mix_decode(
@@ -359,29 +370,29 @@ def _positions(B: int, T: int, device):
 
 
 def forward(cfg: LMConfig, params, tokens):
-    """tokens [B, T] -> logits [B, T, V] (f32).  The JAX package's forward
-    also returns the MoE auxiliary loss, which the port has no use for
-    until MoE and training are ported."""
-    check_supported(cfg)
+    """tokens [B, T] -> (logits [B, T, V] f32, aux): aux is the MoE
+    auxiliary loss summed over layers, a 0-dim f32 tensor (0 without MoE),
+    as the JAX package's forward returns."""
     B, T = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = _positions(B, T, x.device)
     x0 = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, (kind, p) in enumerate(zip(cfg.layer_kinds(),
                                           params["layers"])):
         if _shared_here(cfg, layer):
             delta, _ = _shared_forward(cfg, params["shared"], x, x0,
                                        positions)
             x = x + delta
-        x, _ = _block(cfg, kind, p, x, positions)
+        x, _, a = _block(cfg, kind, p, x, positions)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _softcap(cfg, unembed(_table(cfg, params), x))
+    return _softcap(cfg, unembed(_table(cfg, params), x)), aux
 
 
 def prefill(cfg: LMConfig, params, tokens, max_len: int):
     """tokens [B, T] -> (cache sized for max_len, last_logits [B, V] f32).
     No logit soft-capping here, as in the JAX package."""
-    check_supported(cfg)
     B, T = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = _positions(B, T, x.device)
@@ -396,8 +407,8 @@ def prefill(cfg: LMConfig, params, tokens, max_len: int):
                 prefill_entry=cache["shared"][layer // P])
             cache["shared"][layer // P] = entry
             x = x + delta
-        x, cache["layers"][layer] = _block(cfg, kind, p, x, positions,
-                                           cache["layers"][layer])
+        x, cache["layers"][layer], _ = _block(cfg, kind, p, x, positions,
+                                              cache["layers"][layer])
     cache["pos"] = torch.full((B,), T, dtype=torch.int32, device=x.device)
     # the final norm is per position: only the last one is needed
     x = apply_norm(params["final_norm"], x[:, -1:, :], cfg.norm)
@@ -407,7 +418,6 @@ def prefill(cfg: LMConfig, params, tokens, max_len: int):
 def decode_step(cfg: LMConfig, params, cache, tokens1):
     """One decode step.  tokens1: [B] int.  Returns (cache, logits [B, V]).
     Attention caches are updated in place (models/attention.py)."""
-    check_supported(cfg)
     position = cache["pos"]
     x1 = _embed(cfg, params, tokens1[:, None])
     x0 = x1

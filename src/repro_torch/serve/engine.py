@@ -9,8 +9,8 @@ sampling.
 A request's batch-1 prefill cache is copied into its slot in place, leaf
 by leaf along the cache's batch axis (models/kv_cache.py: axis 0 of every
 tensor leaf), whatever the tree holds: per-layer recurrent states,
-attention k/v/pos, Zamba2's shared-block caches.  The engine runs without
-autograd.
+attention k/v/pos, Zamba2's shared-block caches, the encoder-decoder's
+self and cross caches.  The engine runs without autograd.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ __all__ = ["Request", "ServeEngine"]
 class Request:
     rid: int
     prompt: np.ndarray                  # [T] int
+    enc_x: np.ndarray | None = None     # [T_enc, d] frame embeddings
     max_new_tokens: int = 32
     eos_id: int | None = None
     temperature: float = 0.0
@@ -86,8 +87,11 @@ class ServeEngine:
         slot = free[0]
         tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
                                  dtype=torch.long, device=self.device)
-        src_cache, logits = self.api.prefill(self.params, {"tokens": tokens},
-                                             self.max_len)
+        batch = {"tokens": tokens}
+        if req.enc_x is not None:
+            batch["enc_x"] = torch.as_tensor(np.asarray(req.enc_x)[None],
+                                             device=self.device)
+        src_cache, logits = self.api.prefill(self.params, batch, self.max_len)
         self._write_slot(slot, src_cache)
         self.active[slot] = req
         req.generated.append(self._sample(logits[0], req))

@@ -27,7 +27,11 @@ rtol = atol = 2e-4, the JAX package's f32 tolerance: both sides upcast the
 same bf16 or f32 values and sum in f32 in another order; so is the scan in
 ssd mode on Mamba-2's operands (zamba2-7b's H=112, K=V=64 over 2048
 tokens, and the SMOKE width K=V=16).  A 2-layer zamba2-7b at full width
-in f32, card against CPU (prefill and 2 decode steps, 1e-3).
+in f32, card against CPU (prefill and 2 decode steps, 1e-3).  The MoE and
+the encoder-decoder run no kernel of ours; their einsums and attention are
+held card against CPU in f32: `moe_apply` at mixtral-8x22b's width
+(d_model 6144, d_ff 16384) with 2 experts, and `whisper_encode` at
+whisper-large-v3's width over 1,500 frames (2 layers), both within 1e-3.
 """
 import numpy as np
 import pytest
@@ -533,3 +537,54 @@ def test_federated_workers_equal_in_process_shards_on_the_card(cuda):
     assert all(p["device"].startswith("cuda") for p in procs)
     assert all(p["gru_scan_launches"] > 0 and p["rk4_poly_launches"] > 0
                for p in procs)
+
+
+@pytest.mark.cuda
+def test_moe_apply_card_against_cpu(cuda):
+    """mixtral-8x22b's expert width with 2 experts (2.4 GB of f32 weights a
+    side), 1,024 tokens in 2 groups of 512 at capacity 1.25: the same
+    routing (support equal) and outputs within 1e-3 (6144- and 16384-long
+    f32 dot products in another order)."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.moe_init(gen, 6144, 16384, 2, "swiglu", torch.float32)
+    host = _to_cpu(params)
+    x = torch.randn((2, 512, 6144), device=cuda, generator=gen)
+    kw = dict(n_experts=2, top_k=2, capacity_factor=1.25, group_size=512)
+    routed = []
+    real = moe.router_topk
+
+    def record(logits, top_k, capacity):
+        combine, aux = real(logits, top_k, capacity)
+        routed.append((combine > 0).cpu())
+        return combine, aux
+    moe.router_topk = record
+    try:
+        with torch.no_grad():
+            y, aux = moe.moe_apply(params, x, **kw)
+            y_cpu, aux_cpu = moe.moe_apply(host, x.cpu(), **kw)
+    finally:
+        moe.router_topk = real
+    assert torch.equal(routed[0], routed[1])
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_whisper_encode_card_against_cpu(cuda):
+    """whisper-large-v3's width (d_model 1280, 20 heads, d_ff 5120), 2
+    encoder layers, 1,500 frames drawn x 0.1: the card's encoder output
+    within 1e-3 of the CPU's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import encdec
+    cfg = get_arch("whisper-large-v3").config.with_(
+        enc_layers=2, n_layers=1, dtype=torch.float32)
+    params = encdec.whisper_init(cfg, seed=0, device=cuda)
+    host = _to_cpu(params)
+    enc_x = torch.from_numpy((np.random.default_rng(0).normal(
+        size=(1, 1500, cfg.d_model)) * 0.1).astype(np.float32))
+    with torch.no_grad():
+        got = encdec.whisper_encode(cfg, params, enc_x.to(cuda))
+        want = encdec.whisper_encode(cfg, host, enc_x)
+    assert got.shape == (1, 1500, cfg.d_model)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)

@@ -42,7 +42,10 @@ def test_every_module_imports_without_jax():
             "repro_torch.twin.sharded",
             "repro_torch.twin.federation", "repro_torch.models.attention",
             "repro_torch.models.mamba2",
-            "repro_torch.configs.zamba2_7b"} <= set(_modules())
+            "repro_torch.configs.zamba2_7b", "repro_torch.models.moe",
+            "repro_torch.models.encdec", "repro_torch.configs.mixtral_8x22b",
+            "repro_torch.configs.arctic_480b",
+            "repro_torch.configs.whisper_large_v3"} <= set(_modules())
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -88,11 +91,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                 device="cpu")
     assert params["gru"]["wh"].device == torch.device("cpu")
 
-    from repro_torch.configs import PORTED, get_arch
+    from repro_torch.configs import get_arch, list_archs
     from repro_torch.models.zoo import build
     from repro_torch.serve.engine import ServeEngine
-    assert len(PORTED) == 7
-    for arch in PORTED:
+    assert {"mixtral-8x22b", "arctic-480b", "whisper-large-v3"} <= set(
+        list_archs()) and len(list_archs()) == 10
+    for arch in list_archs():
         api = build(get_arch(arch).smoke)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(api)

@@ -25,7 +25,7 @@ from repro.models.kv_cache import cache_init as jax_cache_init
 from repro.models.zoo import build as jax_build
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
-from repro_torch.configs import PORTED, get_arch, list_archs
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models import transformer as tfm
@@ -75,13 +75,16 @@ def test_config_transcribed_from_jax():
     assert full.dtype == torch.bfloat16 and CFG.dtype == torch.float32
     assert (CFG.n_layers, CFG.d_model, CFG.rwkv_head_dim, CFG.vocab) == (
         JCFG.n_layers, JCFG.d_model, JCFG.rwkv_head_dim, JCFG.vocab)
-    assert "rwkv6-3b" in PORTED and "mixtral-8x22b" in list_archs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        get_arch("mixtral-8x22b")
+    assert {"rwkv6-3b", "mixtral-8x22b"} <= set(list_archs())
+    assert get_arch("mixtral-8x22b").config.n_experts == 8
     with pytest.raises(KeyError):
         get_arch("gpt-2")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build(CFG.with_(pattern=("rwkv6", "attn"), n_experts=4))
+    # as in the JAX package, only the attention blocks of a hybrid take
+    # the MoE FFN; its RWKV-6 blocks keep their channel mix
+    params = build(CFG.with_(pattern=("rwkv6", "attn"), n_experts=4)).init(
+        0, device="cpu")
+    assert [sorted(p) for p in params["layers"]] == [
+        ["norm1", "norm2", "rwkv"], ["attn", "moe", "norm1", "norm2"]]
 
 
 def test_init_params_match_jax_tree(jax_params, port_params):
