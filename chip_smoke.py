@@ -82,12 +82,13 @@ each of which raises on failure (the script then exits nonzero):
              another pid namespace it names every process pid 1, and
              their count stands in);
  10. LM zoo (run before 8): zamba2-7b and qwen3-8b at full width and
-             depth (81 Mamba-2 layers + 14 shared-block invocations, d_model
-             3584; 36 attention layers, d_model 4096; bf16, random weights
-             from a seed), each behind a 4-slot ServeEngine with phase 5's
-             protocol (8 greedy requests of 256-2048 tokens, 32 new
-             tokens; the zamba2 prefill path launches the scan exactly 81
-             times a request, decode and qwen3 none), then one more prefill
+             cut depth (42 of 81 Mamba-2 layers + 7 shared-block
+             invocations, d_model 3584; 12 of 36 attention layers, d_model
+             4096; bf16, random weights from a seed), each behind a 4-slot
+             ServeEngine with phase 5's protocol (8 greedy requests of
+             256-2048 tokens, 32 new tokens; the zamba2 prefill path
+             launches the scan exactly 42 times a request, decode and
+             qwen3 none), then one more prefill
              and 4 decode steps under torch.profiler; the scan held to its
              plain version on the operands it got from one zamba2 layer
              of a 2048-token prefill; then the six architectures of the
@@ -99,7 +100,7 @@ each of which raises on failure (the script then exits nonzero):
              cycle) with an 1,100-token prompt, past its 1,024 window, so
              the local layers' ring caches wrap;
  11. MoE and encoder-decoder (run before 8): mixtral-8x22b at full width,
-             12 of its 56 layers (d_model 6144, GQA 48/8, 8 experts top-2
+             4 of its 56 layers (d_model 6144, GQA 48/8, 8 experts top-2
              of d_ff 16384, window 4096, capacity 1.25, group 512), and
              arctic-480b at full width, 2 of its 35 layers (d_model 7168,
              GQA 56/8, 128 experts top-2 of d_ff 4864 plus the dense FFN
@@ -110,7 +111,8 @@ each of which raises on failure (the script then exits nonzero):
              moe_apply's ValueError on the card; one 2,048-token prefill's
              routing gated (no expert keeps more than C a group, the kept
              total equals the host's recount of the router's top-k);
-             whisper-large-v3 whole (32 + 32 layers, d_model 1280) with
+             whisper-large-v3 at 16 + 16 of its 32 + 32 layers (d_model
+             1280) with
              max_len 1,500, 8 requests of 1,500 frames (drawn x 0.1) and a
              4-token prompt, 32 new tokens; each model's prefill and 4
              decode steps profiled; then card against CPU in f32, the
@@ -119,6 +121,25 @@ each of which raises on failure (the script then exits nonzero):
              the router's smallest top-k margin printed): mixtral 2
              layers with a 300-token prompt, whisper 4 + 4 layers over
              1,500 frames, arctic at its SMOKE config;
+ 12. LM training (run before 8): the scan's gradient on the card (kernel
+             forward, the plain version replayed in the backward) against
+             the plain version's for q, k, v, w, u and the initial state
+             at an rwkv6-3b layer's training shape (B=4, H=40, T=1024,
+             bf16) and a zamba2-7b Mamba-2 layer's (ssd, H=112, T=2048),
+             one launch a call; rwkv6-3b whole (32 layers, bf16, random
+             weights from a seed) trained 20 steps of 4 x 1,024 tokens
+             through launch/train.py's `train_lm` (AdamW, cosine schedule,
+             the JAX package's defaults): losses finite and falling, the
+             scan exactly 2 x 32 launches a step (each layer recomputed in
+             the backward), ms a step, tokens/s, peak memory, one step
+             profiled; the kill row (4 layers, a checkpoint every 2 steps
+             under build/, preempted at step 5, restarted from the newest
+             commit: 0 steps lost, params and losses as uninterrupted);
+             then card against CPU in f32, the first step's gradients and
+             3 steps' losses and params: rwkv6 2 layers, qwen3 2, zamba2
+             7, whisper 4 + 4 at full width, mixtral and arctic at SMOKE
+             with grad_accum=2 (arctic with the top-k compressor), their
+             routing equal call by call;
   8. time    each kernel and its plain version at every serving and
              offline shape (GRU: the online tick's refit, the offline
              fleet's, F-8 training's and recovery's, Table I's
@@ -130,7 +151,8 @@ each of which raises on failure (the script then exits nonzero):
 
 Kernel launch counts are set to 0 just before each path (tick, predict,
 scenario, the crash-safety runs, LM prefill and decode of rwkv6, zamba2,
-qwen3, mixtral, arctic and whisper, the offline ones:
+qwen3, mixtral, arctic and whisper, LM training and its kill and parity
+rows, the offline ones:
 simulate, each Table I fit and its scoring, F-8 training and recovery,
 the offline fleet; and phase 9's in-process runs) and read just after it;
 a path that launches none of its kernels, or one it does not run, fails.
@@ -183,13 +205,15 @@ LM_TOL = dict(rtol=1e-3, atol=1e-3)
 LM_SLOTS, LM_REQUESTS, LM_NEW, LM_PROMPTS = 4, 8, 32, (256, 2048)
 LM_PARITY_LAYERS, LM_PARITY_PROMPT, LM_PARITY_STEPS = 2, 300, 16
 LM_PROFILE_STEPS = 4  # decode steps traced by torch.profiler after serving
-# phase 10, the LM zoo: served at full width and depth with phase 5's
-# protocol (arch -> the prefix of its two launch-count paths), and card
+# phase 10, the LM zoo: served at full width with phase 5's protocol
+# (arch -> the prefix of its two launch-count paths and the layers served:
+# zamba2 7 of its 13 cycles and 42 of its 81 layers, qwen3 12 of 36; cut
+# from the whole models since LM training joined the script), and card
 # against CPU in f32 at full width and cut depth, arch -> (layers, prompt):
 # zamba2 one cycle of 6 and a 1-layer tail (the shared block at both of its
 # sites), gemma3 one local x5 + global cycle with a prompt past its 1,024
 # window (the local rings wrap), the dense ones 2 layers
-ZOO_SERVED = {"zamba2-7b": "lm_zamba2", "qwen3-8b": "lm_qwen3"}
+ZOO_SERVED = {"zamba2-7b": ("lm_zamba2", 42), "qwen3-8b": ("lm_qwen3", 12)}
 ZOO_PARITY = {"zamba2-7b": (7, 300), "qwen3-8b": (2, 300),
               "starcoder2-15b": (2, 300), "chatglm3-6b": (2, 300),
               "gemma3-12b": (6, 1100), "chameleon-34b": (2, 300)}
@@ -198,9 +222,10 @@ ZOO_PARITY_STEPS = 8
 # LM_PROMPTS[1] tokens (outside the counted run)
 ZOO_RECORD_LAYER = 40
 # phase 11, the MoE LMs and the encoder-decoder, served at full width with
-# phase 5's protocol (arch -> (prefix, layers)): mixtral cut to 12 of its
+# phase 5's protocol (arch -> (prefix, layers)): mixtral cut to 4 of its
 # 56 layers (5.01 GB of bf16 a layer: 56 are 281 GB), arctic to 2 of 35
-# (27.2 GB a layer), whisper whole (32 + 32 layers), its requests each
+# (27.2 GB a layer), whisper to 16 + 16 of its 32 + 32 layers (these three
+# cut further since LM training joined the script), its requests each
 # Whisper's 30-s window after the conv frontend (1,500 frames) and a
 # 4-token decoder prompt, its engine's max_len 1,500 (the JAX package's
 # zoo sizes the cross caches at max_len).  A prefill of MOE_REFUSED tokens
@@ -208,13 +233,61 @@ ZOO_RECORD_LAYER = 40
 # mixtral 2 layers at full width (about 20 GB a side), whisper 4 + 4
 # layers, arctic its SMOKE config (one full-width f32 layer is 54 GB a
 # side)
-MOE_SERVED = {"mixtral-8x22b": ("lm_mixtral", 12),
+MOE_SERVED = {"mixtral-8x22b": ("lm_mixtral", 4),
               "arctic-480b": ("lm_arctic", 2)}
-WHISPER_FRAMES, WHISPER_PROMPT = 1500, 4
+WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_SERVED_LAYERS = 1500, 4, 16
 MOE_REFUSED = 1025
 PARITY_11 = {"mixtral-8x22b": dict(layers=2, prompt_len=300),
              "whisper-large-v3": dict(layers=4, prompt_len=WHISPER_PROMPT),
              "arctic-480b": dict(smoke=True, prompt_len=300)}
+# phase 12, LM training.  The scan's gradient (kernel forward, the plain
+# version replayed in the backward) against the plain version's at one
+# rwkv6-3b layer's training shape and at a zamba2-7b Mamba-2 layer's, each
+# leaf within SCAN_GRAD_REL of its envelope (max |g|): the cotangent of the
+# loss mean(o^2) + mean(S^2) is the kernel's own o and S, within SCAN_TOL of
+# the plain ones.  The bf16 leaves (q, k, v) get their gradients rounded to
+# bf16, where one rounding apart is up to 2^-7 of the envelope: they are
+# held within SCAN_GRAD_REL + 2^-7
+SCAN_GRAD_REL = 1e-3
+SCAN_GRAD_BF16_ULP = 2.0 ** -7
+SCAN_GRAD_SHAPES = {"rwkv6-3b layer B=4 H=40 T=1024 rwkv6": (4, 40, 1024),
+                    "zamba2-7b Mamba-2 B=1 H=112 T=2048 ssd": (1, 112, 2048)}
+# rwkv6-3b whole through launch/train.py's entry point, the JAX package's
+# defaults otherwise (lr 3e-3, cosine with 10 warm-up steps, weight decay
+# 0.1, clipping at 1.0); ms a step is the median over steps 3-20
+TRAIN_ARGS = ["--arch", "rwkv6-3b", "--steps", "20", "--batch", "4",
+              "--seq-len", "1024", "--seed", "0"]
+TRAIN_TIMED_FROM = 2
+# the kill row: rwkv6-3b at full width, 4 of 32 layers, 8 steps of the
+# training batch, a checkpoint every 2 steps (the 2 newest kept: one is 6.8
+# GB of bf16 params and f32 moments), preempted at step 5, restarted from
+# the newest commit.  The card's sums need not repeat bit for bit, so the
+# resumed params are held within 2 bf16 ulps of the uninterrupted run's
+# and its losses within 1e-3; bit-exactness is printed, not gated
+KILL_LM_LAYERS, KILL_LM_STEPS, KILL_LM_EVERY, KILL_LM_AT = 4, 8, 2, 5
+KILL_LM_PARAM_REL, KILL_LM_LOSS_REL = 2.0 ** -7, 1e-3
+TRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_train_ckpt"
+# card against CPU in f32 from the same weights and tokens (batches of 2 x
+# 32 tokens, Whisper over 32 frames): 3 steps of make_train_step, each
+# step's loss, the first step's every gradient and every param after the
+# third, each leaf within 1e-3 of its envelope.  The steps take SGD with
+# momentum at train_lm's learning rate, 3e-3, unclipped (the host's passes
+# over the full-width tables dominate these rows; an unclipped step of 0.1
+# made the losses climb).  Not Adam: its first step is g / |g|, so a
+# gradient within rounding of 0 flips its update by 2 lr and no envelope
+# tolerance holds; SGD's step is linear in the gradient.  The MoE LMs run
+# at SMOKE (one full-width f32 MoE layer with grads is over 20 GB a side on
+# the host) with grad_accum=2, arctic with the top-k compressor, and their
+# routing equal call by call
+TRAIN_PARITY = {"rwkv6-3b": dict(layers=2), "qwen3-8b": dict(layers=2),
+                "zamba2-7b": dict(layers=7),
+                "whisper-large-v3": dict(layers=4),
+                "mixtral-8x22b": dict(smoke=True, grad_accum=2),
+                "arctic-480b": dict(smoke=True, grad_accum=2,
+                                    compress=0.25)}
+TRAIN_PARITY_B, TRAIN_PARITY_T, TRAIN_PARITY_STEPS = 2, 32, 3
+TRAIN_REL = 1e-3
 # the kernels each serving path must launch (the LM decode path none)
 # the CUDA kernels of csrc/, as the profiler names them
 OWN_KERNELS = ("gru_scan_kernel", "rk4_poly_kernel", "chunk_state_kernel",
@@ -261,14 +334,21 @@ PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
                 "scale_1k": ("gru_scan", "rk4_poly"),
                 "scale_10k": ("gru_scan", "rk4_poly"),
                 "federated_10k": (), "federated_tcp": (),
-                "federated_kill": ()}
+                "federated_kill": (),
+                # LM training: every RWKV-6 and Mamba-2 layer's forward,
+                # twice a step (the backward recomputes it); the card
+                # sides of the parity rows summed
+                "lm_train": ("linear_scan",),
+                "lm_train_resume": ("linear_scan",),
+                "lm_train_parity": ("linear_scan",)}
 # the offline phase, cut to its budget (about 3 minutes on the card):
 # Table I's quick protocol (benchmarks/table1_accuracy.py: 400 steps, two
-# seeds, four systems) at 200 steps, one seed, F-8 and Lotka-Volterra;
-# F-8 training (examples/train_f8_crusader.py: 400 steps) at 200; the
-# offline fleet (examples/fleet_twinning.py) uncut
-TABLE1_SYSTEMS, TABLE1_STEPS = ("f8_crusader", "lotka_volterra"), 200
-F8_STEPS, F8_PARITY_STEPS, FLEET_STEPS = 200, 10, 60
+# seeds, four systems) at 100 steps, one seed, F-8 and Lotka-Volterra;
+# F-8 training (examples/train_f8_crusader.py: 400 steps) at 100 (both cut
+# from 200 since LM training joined the script); the offline fleet
+# (examples/fleet_twinning.py) uncut
+TABLE1_SYSTEMS, TABLE1_STEPS = ("f8_crusader", "lotka_volterra"), 100
+F8_STEPS, F8_PARITY_STEPS, FLEET_STEPS = 100, 10, 60
 # card against CPU, whole simulations: each trace within this share of its
 # envelope.  Lorenz is chaotic (largest Lyapunov exponent about 0.9/s): over
 # its 4-s horizon rounding differences grow about e^3.6 = 37-fold, and
@@ -1034,6 +1114,9 @@ def kernel_lines(dev, paths, worst):
             replaces="src/repro/kernels/linear_scan/linear_scan.py:28"),
             timings, "T=2048")
         line["bound_ms_pairwise_form"] = pairwise["T=2048"]
+        # phase 12: its gradients (kernel forward, replayed backward)
+        # against the plain version's, the worst share of an envelope
+        line["grad_max_rel_err"] = worst.get("linear_scan_grad")
         line["shape"] = f"B=1 H=40 T=2048 K={K} V={V} C={C} rwkv6 bf16"
         lines.append(line)
     return lines
@@ -1042,7 +1125,6 @@ def kernel_lines(dev, paths, worst):
 def scan_launches(fn, calls: int = 10):
     """Device time of each of the scan's three launches (chunk states, the
     scan across chunks, chunk outputs) under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1053,9 +1135,8 @@ def scan_launches(fn, calls: int = 10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    parts = [(k, e.self_device_time_total / e.count / 1e3)
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-             for k in OWN_KERNELS if k in e.key]
+    parts = [(k, t / n / 1e3) for name, (t, n) in _device_events(prof).items()
+             for k in OWN_KERNELS if k in name]
     if not parts:
         print("linear_scan launches: not measured (no device events)")
         return
@@ -1492,7 +1573,8 @@ def serve_lm(paths: dict, arch: str = "rwkv6-3b", prefix: str = "lm",
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = get_arch(arch).config
     if layers is not None:
-        cfg = cfg.with_(n_layers=layers)
+        cfg = cfg.with_(n_layers=layers,
+                        enc_layers=layers if cfg.enc_layers else 0)
     pre_path, dec_path = f"{prefix}_prefill", f"{prefix}_decode"
     finite = []
     api = _lm_api(cfg, finite)
@@ -1732,13 +1814,13 @@ def _record_scan(worst: dict):
 
 
 def lm_zoo(dev, paths, worst):
-    """Phase 10: ZOO_SERVED at full width and depth with phase 5's
+    """Phase 10: ZOO_SERVED at full width and cut depth with phase 5's
     protocol (zamba2's scan also held to its plain version on one layer's
     recorded operands), then every ZOO_PARITY architecture card against
     CPU in f32 at full width and cut depth."""
-    for arch, prefix in ZOO_SERVED.items():
+    for arch, (prefix, layers) in ZOO_SERVED.items():
         t0 = time.perf_counter()
-        serve_lm(paths, arch, prefix,
+        serve_lm(paths, arch, prefix, layers=layers,
                  after=_record_scan(worst) if arch == "zamba2-7b" else None)
         print(f"{arch}: {time.perf_counter() - t0:.1f} s")
     for arch, (layers, prompt) in ZOO_PARITY.items():
@@ -1821,7 +1903,8 @@ def _moe_checks(api, params):
 
 def moe_encdec(dev, paths):
     """Phase 11: the MOE_SERVED LMs at full width and cut depth, then
-    whisper-large-v3 whole, each behind the 4-slot engine with phase 5's
+    whisper-large-v3 at WHISPER_SERVED_LAYERS + WHISPER_SERVED_LAYERS
+    layers, each behind the 4-slot engine with phase 5's
     protocol (MoE prompts rounded to whole groups; whisper's requests
     WHISPER_FRAMES frames and a WHISPER_PROMPT-token prompt, max_len =
     WHISPER_FRAMES); then PARITY_11 card against CPU in f32."""
@@ -1832,17 +1915,442 @@ def moe_encdec(dev, paths):
         print(f"{arch}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serve_lm(paths, "whisper-large-v3", "lm_whisper",
-             requests=_whisper_requests, max_len=WHISPER_FRAMES)
+             layers=WHISPER_SERVED_LAYERS, requests=_whisper_requests,
+             max_len=WHISPER_FRAMES)
     print(f"whisper-large-v3: {time.perf_counter() - t0:.1f} s")
     for arch, kw in PARITY_11.items():
         lm_parity(dev, arch, steps=ZOO_PARITY_STEPS, **kw)
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: LM training
+# --------------------------------------------------------------------------- #
+def _envelope_err(got, want) -> float:
+    """max |got - want| over the envelope max |want| (0 for a zero
+    want)."""
+    scale = float(want.abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    return err / scale if scale else err
+
+
+def check_scan_grads(dev) -> float:
+    """SCAN_GRAD_SHAPES: the wrapper's gradients of q, k, v, w, u and the
+    initial state (the kernel's forward, the plain version replayed in the
+    backward) against the plain version's under autograd, on the card, bf16
+    q/k/v; one launch a call (the replay launches none).  Returns the worst
+    envelope share."""
+    from repro_torch.kernels.linear_scan.ops import linear_scan
+    from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
+    gen = torch.Generator().manual_seed(12)
+    worst = 0.0
+    for label, (B, H, T) in SCAN_GRAD_SHAPES.items():
+        if label.endswith("rwkv6"):
+            mode, (q, k, v, w, u) = "rwkv6", _scan_inputs(
+                gen, dev, B, H, T, torch.bfloat16)
+        else:
+            mode, u = "ssd", None
+            q, k, v, w = _mamba2_scan_inputs(gen, dev, B, H, T, 64,
+                                             torch.bfloat16)
+        s0 = (0.1 * torch.randn((B, H, 64, 64), generator=gen)).to(dev)
+        base = [q, k, v, w, u, s0]
+        sides = []
+        for fn in (linear_scan, linear_scan_chunked):
+            ins = [None if t is None else t.clone().requires_grad_()
+                   for t in base]
+            before = linear_scan.launches
+            o, sf = fn(*ins[:5], mode=mode, initial_state=ins[5])
+            loss = torch.mean(o * o) + torch.mean(sf * sf)
+            live = [t for t in ins if t is not None]
+            grads = torch.autograd.grad(loss, live)
+            torch.cuda.synchronize()
+            launched = linear_scan.launches - before
+            sides.append((launched, [o.detach(), sf.detach()], grads,
+                          live))
+            del o, sf, loss
+        (n_kernel, out, grads, live), (n_plain, ref_out, ref, _) = sides
+        if n_kernel != 1 or n_plain != 0:
+            raise RuntimeError(f"scan gradient {label}: {n_kernel} kernel "
+                               f"launches (want 1), plain {n_plain}")
+        fwd = _close(f"linear_scan {label} forward", out, ref_out, SCAN_TOL)
+        names = ["q", "k", "v", "w", "u", "s0"]
+        names = [n for n, t in zip(names, base) if t is not None]
+        errs, bad = {}, []
+        for name, g, r, t in zip(names, grads, ref, live):
+            if g.dtype != t.dtype:
+                raise RuntimeError(f"scan gradient {label} {name}: "
+                                   f"{g.dtype}, input {t.dtype}")
+            errs[name] = _envelope_err(g, r)
+            limit = SCAN_GRAD_REL + (SCAN_GRAD_BF16_ULP
+                                     if t.dtype == torch.bfloat16 else 0.0)
+            if errs[name] > limit:
+                bad.append(f"{name} {errs[name]:.3e} > {limit:.3e}")
+        print(f"  linear_scan gradient {label} bf16: forward max|err| "
+              f"{fwd:.3e}; gradients' max|kernel - plain| / max|plain|: "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f" (limit {SCAN_GRAD_REL}, bf16 leaves + 2^-7); 1 launch, "
+              "0 in the backward")
+        if bad:
+            raise RuntimeError(f"scan gradient {label}: " + "; ".join(bad))
+        worst = max(worst, *errs.values())
+        del sides, grads, ref, live, base, q, k, v, w, u, s0
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _gib(tree) -> float:
+    from repro_torch.train.checkpoint import tree_flatten
+    return sum(t.nbytes for t in tree_flatten(tree)[0]
+               if isinstance(t, torch.Tensor)) / 2**30
+
+
+def _scan_layers(cfg) -> int:
+    return sum(k in ("rwkv6", "mamba2") for k in cfg.layer_kinds())
+
+
+def _scan_launches(cfg) -> int:
+    """The scan's launches in one forward and backward: one for each
+    RWKV-6 or Mamba-2 layer, and one more for each that the backward
+    recomputes (`cfg.remat`: the layers of whole cycles, not the tail)."""
+    P = len(cfg.pattern)
+    return sum(1 + bool(cfg.remat and i < cfg.cycles * P)
+               for i, k in enumerate(cfg.layer_kinds())
+               if k in ("rwkv6", "mamba2"))
+
+
+def train_full(dev, paths):
+    """rwkv6-3b whole, bf16, through `train_lm` (TRAIN_ARGS): every loss
+    finite and the last 5 below the first 5 on average; the scan launched
+    exactly 2 x 32 times a step; then one more step under the
+    profiler."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.train import parser, train_lm
+    from repro_torch.models.zoo import build
+    from repro_torch.train.optimizer import adamw, cosine_schedule
+    from repro_torch.train.train_state import make_train_step
+    args = parser().parse_args(TRAIN_ARGS)
+    cfg = get_arch(args.arch).config
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist = counted(paths, "lm_train", lambda: train_lm(args))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist]
+    want = _scan_launches(cfg) * args.steps
+    got = paths["lm_train"]["linear_scan"]
+    if got != want:
+        raise RuntimeError(f"lm_train launched linear_scan {got} times, "
+                           f"expected {_scan_launches(cfg)} x "
+                           f"{args.steps} = {want}")
+    if not all(np.isfinite(losses)) or len(losses) != args.steps:
+        raise RuntimeError(f"{cfg.name} training losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        raise RuntimeError(f"{cfg.name}: the last 5 losses' mean {last:.4f} "
+                           f"is not below the first 5's {first:.4f}")
+    dts = [h["dt_s"] for h in hist[TRAIN_TIMED_FROM:]]
+    p50 = float(np.median(dts))
+    tokens = args.batch * args.seq_len
+    opt_state = state["opt"]
+    print(f"{_describe(cfg)}: trained {args.steps} steps of {args.batch} x "
+          f"{args.seq_len} tokens in {wall:.1f} s: "
+          f"{_n_params(state['params']) / 1e9:.3f}B parameters, params "
+          f"{_gib(state['params']):.2f} GiB, optimizer state "
+          f"{_gib(opt_state):.2f} GiB, peak {peak:.2f} GiB allocated")
+    print(f"{cfg.name} training: ms a step p50 {p50 * 1e3:.1f} (steps "
+          f"{TRAIN_TIMED_FROM + 1}-{args.steps}: min {min(dts) * 1e3:.1f}, "
+          f"max {max(dts) * 1e3:.1f}), {tokens / p50:.1f} tokens/s; scan "
+          f"launches {got} = {_scan_launches(cfg)} a step x {args.steps}; "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)} (first 5 mean "
+          f"{first:.4f}, last 5 {last:.4f})")
+    api = build(cfg, max_position=args.seq_len)
+    step = make_train_step(api.loss, adamw(lr=cosine_schedule(
+        args.lr, 10, args.steps), weight_decay=0.1), donate=True)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in TokenStream(
+        vocab=cfg.vocab, batch=args.batch, seq_len=args.seq_len,
+        seed=args.seed).batch_at(args.steps).items()}
+    profiled(f"one {cfg.name} training step ({tokens} tokens)",
+             lambda: step(state, batch))
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+
+def train_resume(dev, paths):
+    """The kill row: KILL_LM_STEPS steps of rwkv6-3b at KILL_LM_LAYERS
+    layers uninterrupted, then again with a checkpoint every KILL_LM_EVERY
+    steps and a SimulatedPreemption at KILL_LM_AT, restarted from the
+    newest commit on the stream seeked to it: 0 steps lost, params and
+    losses as the uninterrupted run's (KILL_LM_*_REL)."""
+    import shutil
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed.fault_tolerance import (FailureInjector,
+                                                         SimulatedPreemption)
+    from repro_torch.models.zoo import build
+    from repro_torch.train.checkpoint import latest_step
+    from repro_torch.train.loop import LoopConfig, run_loop
+    from repro_torch.train.optimizer import (adamw, cosine_schedule,
+                                             tree_leaves)
+    from repro_torch.train.train_state import init_state, make_train_step
+    args = dict(zip(TRAIN_ARGS[::2], TRAIN_ARGS[1::2]))
+    B, T = int(args["--batch"]), int(args["--seq-len"])
+    cfg = get_arch("rwkv6-3b").config.with_(n_layers=KILL_LM_LAYERS)
+    api = build(cfg, max_position=T)
+    opt = adamw(lr=cosine_schedule(3e-3, 10, KILL_LM_STEPS),
+                weight_decay=0.1)
+    step = make_train_step(api.loss, opt, donate=True)
+    stream = TokenStream(vocab=cfg.vocab, batch=B, seq_len=T, seed=0)
+    on_card = lambda it: ({k: torch.as_tensor(v, device=dev)
+                           for k, v in b.items()} for b in it)
+    fresh = lambda: init_state(api.init(seed=0, device=dev), opt)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    ckpt = dict(ckpt_dir=str(TRAIN_CKPT_DIR), ckpt_every=KILL_LM_EVERY,
+                ckpt_keep=2, log_every=100)
+    t0 = time.perf_counter()
+    try:
+        def runs():
+            ref, ref_hist = run_loop(step, fresh(), on_card(stream),
+                                     LoopConfig(KILL_LM_STEPS,
+                                                log_every=100))
+            ref_params = [t.clone() for t in tree_leaves(ref["params"])]
+            del ref
+            done = []
+            try:
+                run_loop(step, fresh(), on_card(stream), LoopConfig(
+                    KILL_LM_STEPS, injector=FailureInjector(KILL_LM_AT),
+                    metrics_hook=lambda s, m: done.append(s), **ckpt))
+            except SimulatedPreemption as e:
+                print(f"{cfg.name} x {KILL_LM_LAYERS} layers: {e} after "
+                      f"steps {done}")
+            else:
+                raise RuntimeError("the injected preemption did not fire")
+            start = latest_step(TRAIN_CKPT_DIR)
+            state, hist = run_loop(step, fresh(),
+                                   on_card(stream.iter_from(start)),
+                                   LoopConfig(KILL_LM_STEPS, **ckpt))
+            return ref_params, ref_hist, done, start, state, hist
+        ref_params, ref_hist, done, start, state, hist = counted(
+            paths, "lm_train_resume", runs)
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    ran = len(ref_hist) + len(done) + len(hist)
+    want = _scan_launches(cfg) * ran
+    if paths["lm_train_resume"]["linear_scan"] != want:
+        raise RuntimeError(f"lm_train_resume launched linear_scan "
+                           f"{paths['lm_train_resume']['linear_scan']} "
+                           f"times, expected {_scan_launches(cfg)} x "
+                           f"{ran} = {want}")
+    lost = KILL_LM_STEPS - (start + len(hist))
+    if lost or int(state["step"]) != KILL_LM_STEPS or \
+            [h["step"] for h in hist] != list(range(start, KILL_LM_STEPS)):
+        ran_steps = [h["step"] for h in hist]
+        raise RuntimeError(f"resumed at {start}, ran {ran_steps}, step "
+                           f"counter {int(state['step'])}: {lost} steps "
+                           "lost")
+    exact, worst_p = True, 0.0
+    for a, b in zip(tree_leaves(state["params"]), ref_params):
+        exact = exact and torch.equal(a, b)
+        d = (a.float() - b.float()).abs()
+        lim = KILL_LM_PARAM_REL * b.float().abs() + 1e-6
+        if (d > lim).any():
+            raise RuntimeError(f"resumed params differ beyond "
+                               f"{KILL_LM_PARAM_REL} relative: max "
+                               f"{float(d.max()):.3e}")
+        worst_p = max(worst_p, float(d.max()))
+    losses = [h["loss"] for h in hist]
+    ref_losses = [h["loss"] for h in ref_hist[start:]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if rel > KILL_LM_LOSS_REL:
+        raise RuntimeError(f"resumed losses {losses} against {ref_losses}")
+    shown = " ".join(f"{x:.4f}" for x in losses)
+    print(f"{cfg.name} x {KILL_LM_LAYERS} layers, kill at step {KILL_LM_AT}"
+          f": resumed from the checkpoint of step {start}, 0 steps lost "
+          f"({len(done) - start} step redone), params max|resumed - "
+          f"uninterrupted| {worst_p:.3e} (bit-exact: {exact}), losses max "
+          f"relative difference {rel:.3e} ({shown}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    del state, ref_params
+    torch.cuda.empty_cache()
+
+
+def _leaves_close(what, got, want, rel=TRAIN_REL) -> float:
+    """Every leaf (a list of tensors against CPU tensors) within `rel` of
+    its envelope; returns the worst share."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = _envelope_err(g.cpu(), w)
+        if err > rel:
+            raise RuntimeError(f"{what}: leaf {i} {tuple(w.shape)} differs "
+                               f"by {err:.3e} of its envelope (limit {rel})")
+        worst = max(worst, err)
+    return worst
+
+
+class _FirstGrads:
+    """A compressor stand-in for the parity rows: keeps the gradients the
+    train step hands it on its first call (then applies `inner`, if
+    any), so the first step's own gradients are compared."""
+
+    def __init__(self, inner=None):
+        self.inner, self.grads = inner, None
+
+    def init(self, grads):
+        return None if self.inner is None else self.inner.init(grads)
+
+    def apply(self, grads, err):
+        if self.grads is None:
+            self.grads = grads
+        return (grads, err) if self.inner is None else self.inner.apply(
+            grads, err)
+
+
+def train_parity(dev, arch, layers=None, smoke=False, grad_accum=1,
+                 compress=None, paths=None):
+    """`arch` in f32 (full width at `layers` layers, or its SMOKE config)
+    card against CPU from the same weights: TRAIN_PARITY_STEPS steps
+    (TRAIN_PARITY's optimizer, the step consuming its state as train_lm's
+    does), the first one's gradients, every step's loss, the params after
+    the last; an MoE's routing equal call by call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed.compression import topk_compressor
+    from repro_torch.kernels.linear_scan.ops import linear_scan
+    from repro_torch.models.zoo import build
+    from repro_torch.train.optimizer import sgd, tree_leaves
+    from repro_torch.train.train_state import init_state, make_train_step
+    spec = get_arch(arch)
+    cfg = (spec.smoke if smoke else spec.config.with_(
+        n_layers=layers, enc_layers=layers if spec.config.enc_layers else 0))
+    cfg = cfg.with_(dtype=torch.float32)
+    api = build(cfg, max_position=TRAIN_PARITY_T)
+    t0 = time.perf_counter()
+    params = api.init(seed=1, device=dev)
+    sides = (("card", dev, params), ("cpu", "cpu", _to(params, "cpu")))
+    stream = TokenStream(vocab=cfg.vocab, batch=TRAIN_PARITY_B,
+                         seq_len=TRAIN_PARITY_T, seed=2,
+                         d_frontend=cfg.d_model if cfg.enc_layers else None)
+    on = lambda b, d: {k: torch.as_tensor(v, device=d) for k, v in b.items()}
+    side = ["card"]
+    routing, restore = (_routing_recorder(side) if cfg.n_experts
+                        else ({}, lambda: None))
+    launches = {"card": 0, "cpu": 0}
+    try:
+        def card_then_cpu(fn):
+            """fn(side index, device, params) on each side; the card's
+            call counted on the lm_train_parity path when the model runs
+            the scan."""
+            out = []
+            for i, (side[0], d, p) in enumerate(sides):
+                if side[0] == "card" and _scan_layers(cfg):
+                    before = paths.get("lm_train_parity",
+                                       {}).get("linear_scan", 0)
+                    out.append(counted(paths, "lm_train_parity",
+                                       lambda: fn(i, d, p), quiet=True))
+                    launches["card"] += (paths["lm_train_parity"]
+                                         ["linear_scan"] - before)
+                else:
+                    linear_scan.launches = 0
+                    out.append(fn(i, d, p))
+                    launches[side[0]] += linear_scan.launches
+            return out
+        o = sgd(lr=3e-3)
+        comp = (topk_compressor(compress, group=api.stack_key)
+                if compress else None)
+        record = [_FirstGrads(comp), _FirstGrads(comp)]
+        steps = [make_train_step(api.loss, o, grad_accum=grad_accum,
+                                 compressor=r, donate=True) for r in record]
+
+        st = [init_state(p, o) for _, _, p in sides]
+        if comp is not None:
+            for s_, (_, _, p) in zip(st, sides):
+                s_["comp"] = comp.init(p)
+        losses = []
+        for n in range(TRAIN_PARITY_STEPS):
+            b = stream.batch_at(n)
+            pairs = card_then_cpu(lambda i, d, p: steps[i](st[i], on(b, d)))
+            st = [pairs[0][0], pairs[1][0]]
+            lc, lh = (float(m["loss"]) for _, m in pairs)
+            if abs(lc - lh) > TRAIN_REL * abs(lh):
+                raise RuntimeError(f"{arch} step {n} loss card {lc}, CPU "
+                                   f"{lh}")
+            losses.append((lc, lh))
+            if n == 0:
+                g_err = _leaves_close(f"{arch} gradients",
+                                      tree_leaves(record[0].grads),
+                                      tree_leaves(record[1].grads))
+                for r in record:
+                    r.grads = False          # recorded; keep no more
+        p_err = _leaves_close(f"{arch} params after {TRAIN_PARITY_STEPS} "
+                              "steps", tree_leaves(st[0]["params"]),
+                              tree_leaves(st[1]["params"]))
+    finally:
+        restore()
+    want = _scan_launches(cfg) * TRAIN_PARITY_STEPS * grad_accum
+    if launches["card"] != want or launches["cpu"]:
+        raise RuntimeError(f"{arch}: the scan launched {launches}, expected "
+                           f"{want} on the card and none on the CPU")
+    note = ""
+    if cfg.n_experts:
+        card, host = routing["card"], routing["cpu"]
+        if len(card) != len(host) or not all(
+                torch.equal(a[1], b[1]) for a, b in zip(card, host)):
+            raise RuntimeError(f"{arch}: the card's MoE routing differs from "
+                               "the CPU's")
+        note = f"; routing equal in all {len(card)} router calls"
+    print(f"{_describe(cfg)}: card against CPU, {TRAIN_PARITY_B} x "
+          f"{TRAIN_PARITY_T} tokens"
+          + (f" over {TRAIN_PARITY_T} frames" if cfg.enc_layers else "")
+          + f", grad_accum {grad_accum}"
+          + (f", top-k compressor keeping {compress}" if compress else "")
+          + f": gradients within {g_err:.2e} of their envelopes, losses "
+          + " ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
+          + f", params after {TRAIN_PARITY_STEPS} steps within {p_err:.2e};"
+          f" scan launches {want}{note} ({time.perf_counter() - t0:.1f} s)")
+    del params, sides, st
+    torch.cuda.empty_cache()
+
+
+def lm_train(dev, paths, worst):
+    """Phase 12: the scan's gradient on the card, rwkv6-3b whole through
+    `train_lm`, the kill row, and the card-against-CPU training steps."""
+    def step(what, fn):
+        print(f"-- {what}")
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"   ({time.perf_counter() - t0:.1f} s)")
+        return out
+    worst["linear_scan_grad"] = step(
+        "the scan's gradient: kernel forward, plain backward replayed",
+        lambda: check_scan_grads(dev))
+    step("rwkv6-3b whole, bf16, through launch/train.py",
+         lambda: train_full(dev, paths))
+    step(f"kill and resume: rwkv6-3b x {KILL_LM_LAYERS} layers",
+         lambda: train_resume(dev, paths))
+    for arch, kw in TRAIN_PARITY.items():
+        step(f"{arch}: training steps card against CPU, f32",
+             lambda: train_parity(dev, arch, paths=paths, **kw))
+
+
+def _device_events(prof) -> dict:
+    """Device time (us) and count of each device event (kernels, copies,
+    fills) by name, read from the profiler's raw events: the profiler's
+    own `key_averages` builds an object a host event too, minutes for
+    the hundred thousand launches of a training step."""
+    from torch.autograd import DeviceType
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            t = out.setdefault(e.name(), [0.0, 0])
+            t[0] += e.duration_ns() / 1e3
+            t[1] += 1
+    return out
+
+
 def profiled(what: str, fn, top: int = 8):
     """Trace `fn` with torch.profiler and print the device's busy share of
     its wall time and the kernels that fill it (one stream, so summed
-    kernel time is busy time)."""
-    from torch.autograd import DeviceType
+    kernel time is busy time).  Returns (busy share, device events), or
+    None when the profiler recorded no device events."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1850,24 +2358,24 @@ def profiled(what: str, fn, top: int = 8):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    kernels = _device_events(prof)
+    busy_us = sum(t for t, _ in kernels.values())
     if busy_us == 0:
         print(f"{what}: device busy share not measured (the profiler "
               "recorded no device events)")
-        return
+        return None
+    launches = sum(n for _, n in kernels.values())
     print(f"profiled {what}: wall {wall_us / 1e3:.2f} ms, "
           f"device busy {busy_us / 1e3:.2f} ms "
-          f"({100 * busy_us / wall_us:.1f}%), "
-          f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x "
-              f"{e.key[:90]}")
-    own = [(k, e) for e in kernels for k in OWN_KERNELS if k in e.key]
+          f"({100 * busy_us / wall_us:.1f}%), {launches} kernel launches")
+    for name, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]
+                               )[:top]:
+        print(f"  {t / 1e3:8.3f} ms {n:6d}x {name[:90]}")
+    own = [(k, t, n) for name, (t, n) in kernels.items()
+           for k in OWN_KERNELS if k in name]
     print("  the port's kernels: " + (", ".join(
-        f"{k} {e.self_device_time_total / 1e3:.3f} ms in {e.count}"
-        for k, e in own) or "none"))
+        f"{k} {t / 1e3:.3f} ms in {n}" for k, t, n in own) or "none"))
+    return busy_us / wall_us, launches
 
 
 def profile_ticks(srv, ys, us):
@@ -2799,6 +3307,12 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_encdec(dev, paths)
     print(f"MoE and encoder-decoder phase: {time.perf_counter() - t0:.1f} s")
+
+    print("== 12. LM training: the scan's gradient, rwkv6-3b whole through "
+          "launch/train.py, kill and resume, card against CPU")
+    t0 = time.perf_counter()
+    lm_train(dev, paths, worst)
+    print(f"LM training phase: {time.perf_counter() - t0:.1f} s")
 
     print("== 8. kernel times at the serving and offline shapes")
     t0 = time.perf_counter()

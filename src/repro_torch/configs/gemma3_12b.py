@@ -25,7 +25,7 @@ CONFIG = LMConfig(
 
 SMOKE = CONFIG.with_(
     n_layers=6, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
-    d_ff=128, vocab=256, window=8, dtype=torch.float32,
+    d_ff=128, vocab=256, window=8, dtype=torch.float32, remat=False,
 )
 
 SPEC = ArchSpec(

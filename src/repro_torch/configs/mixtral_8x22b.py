@@ -25,7 +25,7 @@ SMOKE = CONFIG.with_(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=96, vocab=256, n_experts=4, window=16, moe_group_size=64,
     moe_capacity=8.0,  # no-drop capacity, as the JAX package's SMOKE
-    dtype=torch.float32,
+    dtype=torch.float32, remat=False,
 )
 
 SPEC = ArchSpec(

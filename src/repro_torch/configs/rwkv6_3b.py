@@ -21,7 +21,7 @@ CONFIG = LMConfig(
 
 SMOKE = CONFIG.with_(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
-    rwkv_head_dim=16, d_ff=128, vocab=256, dtype=torch.float32,
+    rwkv_head_dim=16, d_ff=128, vocab=256, dtype=torch.float32, remat=False,
 )
 
 SPEC = ArchSpec(

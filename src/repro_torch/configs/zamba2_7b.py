@@ -29,7 +29,7 @@ SMOKE = CONFIG.with_(
     d_model=64, n_heads=4, n_kv_heads=4, head_dim=32,
     shared_n_heads=4, shared_d_ff=128, d_ff=128, vocab=256,
     ssm_state=16, ssm_head_dim=16,
-    dtype=torch.float32,
+    dtype=torch.float32, remat=False,
 )
 
 SPEC = ArchSpec(

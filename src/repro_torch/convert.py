@@ -15,7 +15,7 @@ from repro_torch.train.optimizer import AdamState
 
 __all__ = ["merinda_params_from_jax", "baseline_params_from_jax",
            "fleet_state_from_jax", "lm_params_from_jax",
-           "whisper_params_from_jax"]
+           "whisper_params_from_jax", "train_state_from_jax"]
 
 
 def _tensors(tree, device, dtype=torch.float32):
@@ -108,4 +108,25 @@ def whisper_params_from_jax(tree, cfg, device="cpu") -> dict:
     for side, n in (("enc_layers", cfg.enc_layers),
                     ("dec_layers", cfg.n_layers)):
         out[side] = [conv(_cycle(tree[side], i)) for i in range(n)]
+    return out
+
+
+def train_state_from_jax(state, cfg, device="cpu") -> dict:
+    """An LM train state of the JAX package (`train_state.init_state` and
+    its steps: {"params", "opt": AdamState(step, mu, nu), "step"}, and
+    "comp", the compressor's error state, if present) -> the port's, so a
+    port run continues a JAX run.  Params go through `lm_params_from_jax`
+    (`whisper_params_from_jax` for an encoder-decoder) in `cfg.dtype`; the
+    moments and the error state, which are f32 whatever the model's dtype,
+    the same way in f32; the step counters become int32 tensors."""
+    conv = whisper_params_from_jax if cfg.enc_layers else lm_params_from_jax
+    f32 = cfg.with_(dtype=torch.float32)
+    step, mu, nu = state["opt"]
+    out = {"params": conv(state["params"], cfg, device),
+           "opt": AdamState(step=_tensors(step, device, torch.int32),
+                            mu=conv(mu, f32, device),
+                            nu=conv(nu, f32, device)),
+           "step": _tensors(state["step"], device, torch.int32)}
+    if state.get("comp") is not None:
+        out["comp"] = conv(state["comp"], f32, device)
     return out

@@ -4,8 +4,12 @@ the plain chunked version (kernels/linear_scan/ref.py), CUDA tensors launch
 the hand-written kernel (csrc/linear_scan.cu: three launches a call -- chunk
 states, the scan across chunks, chunk outputs -- counted as one) or raise.
 
-Forward only: the JAX Pallas path has no backward either.  On CUDA a call
-that would need a gradient raises; training comes with its own kernel.
+On a CUDA tensor the forward launches the kernel (`_LinearScanKernel`) and
+the backward replays the plain chunked version on the saved inputs under
+autograd, as the GRU and RK4 wrappers do: the JAX package trains through
+its jnp chunked scan (its Pallas kernel has no VJP), so there is no
+backward kernel to port.  Under recomputation (`LMConfig.remat`) the
+forward runs, and launches, again in the backward.
 """
 from __future__ import annotations
 
@@ -87,6 +91,50 @@ def linear_scan_kernel(q, k, v, w, u, s0, *, mode: str, chunk: int):
     return o, sf
 
 
+class _LinearScanKernel(torch.autograd.Function):
+    """CUDA forward on [B, H, T, *] operands (w, u, s0 already float32),
+    plain-version backward (linear_scan_chunked replayed under autograd on
+    the saved inputs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, w, u, s0, mode, chunk):
+        ctx.save_for_backward(q, k, v, w, u, s0)
+        ctx.mode, ctx.chunk = mode, chunk
+        ctx.set_materialize_grads(False)
+        B, H, T, K = q.shape
+        V = v.shape[-1]
+        flat = lambda t, d: t.reshape(B * H, T, d).contiguous()
+        o, sf = linear_scan_kernel(
+            flat(q, K), flat(k, K), flat(v, V), flat(w, K),
+            None if u is None else u.contiguous(),
+            None if s0 is None else s0.reshape(B * H, K, V).contiguous(),
+            mode=mode, chunk=chunk)
+        return o.reshape(B, H, T, V), sf.reshape(B, H, K, V)
+
+    @staticmethod
+    def backward(ctx, g_o, g_sf):
+        need = ctx.needs_input_grad[:6]
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        wanted = [t for t, n in zip(inputs, need) if n]
+        # cotangents of the outputs that have one (o, the final state)
+        cots = [(i, g) for i, g in enumerate((g_o, g_sf)) if g is not None]
+        if not wanted or not cots:
+            return (None,) * 8
+        with torch.enable_grad():
+            outs = linear_scan_chunked(*inputs[:5], mode=ctx.mode,
+                                       chunk=ctx.chunk,
+                                       initial_state=inputs[5])
+            grads = iter(torch.autograd.grad(
+                [outs[i] for i, _ in cots], wanted, [g for _, g in cots],
+                allow_unused=True))
+        out = []
+        for t, n in zip(inputs, need):
+            g = next(grads) if n else None
+            out.append(torch.zeros_like(t) if n and g is None else g)
+        return (*out, None, None)
+
+
 def linear_scan(q, k, v, w, u=None, *, mode: str = "ssd", chunk: int = 64,
                 initial_state=None):
     """q, k, w: [B, H, T, K]; v: [B, H, T, V]; u: [H, K] or None;
@@ -117,23 +165,12 @@ def linear_scan(q, k, v, w, u=None, *, mode: str = "ssd", chunk: int = 64,
     if q.device.type != "cuda":
         return linear_scan_chunked(q, k, v, w, u, mode=mode, chunk=chunk,
                                    initial_state=initial_state)
-    operands = [t for t in (q, k, v, w, u, initial_state) if t is not None]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        raise RuntimeError("linear_scan on CUDA is forward-only (no backward "
-                           "kernel yet); call it under torch.no_grad() or "
-                           "with inputs that do not require grad")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    flat = lambda t, d: t.reshape(B * H, T, d).contiguous()
-    o, sf = linear_scan_kernel(
-        flat(q, K), flat(k, K), flat(v, V),
-        flat(w.to(torch.float32), K),
-        None if u is None else u.to(torch.float32).contiguous(),
-        None if initial_state is None else initial_state.to(
-            torch.float32).reshape(B * H, K, V).contiguous(),
-        mode=mode, chunk=chunk)
-    return o.reshape(B, H, T, V), sf.reshape(B, H, K, V)
+    f32 = lambda t: None if t is None else t.to(torch.float32)
+    return _LinearScanKernel.apply(q, k, v, f32(w), f32(u),
+                                   f32(initial_state), mode, chunk)
 
 
 linear_scan.launches = 0   # kernel launches (counted where the kernel starts)

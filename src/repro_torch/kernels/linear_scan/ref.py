@@ -17,7 +17,9 @@ and return (o [B, H, T, V] f32, final_state [B, H, K, V] f32).
   * linear_scan_seq     -- exact per-step loop (the oracle);
   * linear_scan_chunked -- the chunk-parallel formulation, the contract:
     intra-chunk masked pair products, inter-chunk state carry.  Every decay
-    factor is exp of a non-positive difference, so nothing overflows;
+    factor it keeps is exp of a non-positive difference, and the pairs it
+    masks are masked before the exp, so neither the values nor their
+    gradients overflow;
   * linear_scan_subchunked -- the same function in the form the CUDA kernel
     (csrc/linear_scan.cu) computes it: per-chunk state contributions, a
     scan across chunks, and outputs whose off-diagonal pair blocks are
@@ -111,9 +113,15 @@ def linear_scan_chunked(q, k, v, w, u=None, mode: str = "ssd",
         cw = torch.cumsum(wn, dim=-2)                    # inclusive
         cw_read = cw - wn if strict else cw
         # intra-chunk pair decays D[t,s,k] = exp(cw_read[t] - cw[s]), masked
-        diff = cw_read[..., :, None, :] - cw[..., None, :, :]   # [B,H,C,C,K]
-        D = torch.where(mask[:, :, None], torch.exp(diff),
-                        torch.zeros((), dtype=f32, device=q.device))
+        # [B,H,C,C,K].  The masked (non-causal) pairs have positive
+        # differences that can overflow exp; they are set to 0 before it,
+        # else their zero cotangent times exp = inf makes the gradient NaN
+        # (the JAX package's jnp.where(mask, exp(diff), 0) has that fault)
+        diff = cw_read[..., :, None, :] - cw[..., None, :, :]
+        zero = torch.zeros((), dtype=f32, device=q.device)
+        D = torch.where(mask[:, :, None],
+                        torch.exp(torch.where(mask[:, :, None], diff, zero)),
+                        zero)
         P = torch.einsum("bhtk,bhsk,bhtsk->bhts", qn, kn, D)
         o = P @ vn                                       # [B,H,C,V]
         if strict:

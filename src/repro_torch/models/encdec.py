@@ -14,9 +14,14 @@ dict per layer.  Prefill computes each decoder layer's cross K/V once and
 stores it in the cache (models/kv_cache.py's `whisper_cache_init`);
 decode reads it through `attention_decode(cross_kv=...)`.  No kernel of
 the port runs here: the JAX package's attention and MLPs are plain jnp.
-Its `whisper_loss` comes with LM training (ROADMAP.md, Queue 1 item 6).
+`whisper_loss` is the next-token cross-entropy of the teacher-forced
+decoder over the encoded frames; with `cfg.remat` and grad enabled each
+encoder and decoder block is recomputed in the backward, as the JAX
+package checkpoints each of them.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -26,10 +31,12 @@ from repro_torch.models.kv_cache import whisper_cache_init
 from repro_torch.models.layers import (apply_norm, embed_init, embed_lookup,
                                        mlp, mlp_init, norm_init,
                                        sinusoidal_positions, unembed)
-from repro_torch.models.transformer import LMConfig, _fill_attn_cache
+from repro_torch.models.transformer import (LMConfig, _fill_attn_cache,
+                                            _recompute, next_token_nll)
 
 __all__ = ["whisper_init", "whisper_encode", "whisper_decode_forward",
-           "whisper_prefill", "whisper_decode_step", "whisper_cache_init"]
+           "whisper_loss", "whisper_prefill", "whisper_decode_step",
+           "whisper_cache_init"]
 
 
 def _attn_init(gen, cfg: LMConfig) -> dict:
@@ -89,13 +96,15 @@ def whisper_encode(cfg: LMConfig, params, enc_x):
     T = enc_x.shape[1]
     x = (enc_x.to(cfg.dtype)
          + sinusoidal_positions(T, cfg.d_model, cfg.dtype, enc_x.device)[None])
-    for p in params["enc_layers"]:
+    def block(p, x):
         x = x + attn.attention_apply(p["attn"],
                                      apply_norm(p["norm1"], x, cfg.norm),
                                      causal=False, kv_block=cfg.kv_block,
                                      **_kw(cfg))
-        x = x + mlp(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
-                    cfg.mlp_kind)
+        return x + mlp(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
+                       cfg.mlp_kind)
+    for p in params["enc_layers"]:
+        x = _recompute(cfg, partial(block, p), x)
     return apply_norm(params["enc_norm"], x, cfg.norm)
 
 
@@ -129,10 +138,25 @@ def whisper_decode_forward(cfg: LMConfig, params, tokens, enc_out):
     B, T = tokens.shape
     x = _dec_embed(cfg, params, tokens)
     positions = torch.arange(T, device=x.device).expand(B, T)
+    block = lambda p, x, enc_out: _dec_block(cfg, p, x, enc_out,
+                                             positions)[0]
     for p in params["dec_layers"]:
-        x, _, _ = _dec_block(cfg, p, x, enc_out, positions)
+        x = _recompute(cfg, partial(block, p), x, enc_out)
     x = apply_norm(params["dec_norm"], x, cfg.norm)
     return unembed(params["embed"], x)
+
+
+def whisper_loss(cfg: LMConfig, params, batch):
+    """batch {"enc_x": [B, T_enc, d], "tokens": [B, T]} -> (nll, {"nll",
+    "aux"}): the teacher-forced decoder's next-token cross-entropy; aux is
+    0 (no MoE)."""
+    enc_out = whisper_encode(cfg, params, batch["enc_x"])
+    tokens = batch["tokens"]
+    nll = next_token_nll(
+        whisper_decode_forward(cfg, params, tokens, enc_out), tokens)
+    return nll, {"nll": nll,
+                 "aux": torch.zeros((), dtype=torch.float32,
+                                    device=nll.device)}
 
 
 def whisper_prefill(cfg: LMConfig, params, batch, max_len: int):

@@ -123,6 +123,29 @@ def embed_lookup(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["w"][tokens]
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """x [N, d] @ w[V, d].T with f32 output from half-precision operands
+    (`torch.mm(..., out_dtype=float32)`).  The backward takes the f32
+    cotangent against the operands upcast to f32 and rounds each gradient
+    once to its operand's dtype (JAX's transpose of a dot with
+    `preferred_element_type=f32`, whose cotangent stays f32)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(g, w.to(torch.float32)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(g.t(), x.to(torch.float32)).to(w.dtype)
+        return gx, gw
+
+
 def unembed(params: dict, x: torch.Tensor,
             scale: float | None = None) -> torch.Tensor:
     """x [..., d] -> f32 logits [..., V], times `scale` if given.
@@ -132,14 +155,15 @@ def unembed(params: dict, x: torch.Tensor,
     f32, as the JAX package's `preferred_element_type=f32` asks, and the
     [V, d] table is neither copied nor cast per call -- the cost is that of
     the bf16 product alone.  Elsewhere (f32 tables, CPU tensors) both
-    operands are taken in f32.
+    operands are taken in f32.  PyTorch has no derivative for the
+    `out_dtype` product, so it runs inside `_MatmulF32Out`.
     """
     w = params["w"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if w.is_cuda and w.dtype in (torch.bfloat16, torch.float16) \
             and x2.dtype == w.dtype:
-        logits = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        logits = _MatmulF32Out.apply(x2, w)
     else:
         logits = torch.mm(x2.to(torch.float32), w.to(torch.float32).t())
     if scale is not None:

@@ -17,21 +17,30 @@ Paths:
   * `prefill`     -- the prompt through every layer, emitting the decode
                      cache; on the card each RWKV-6 and Mamba-2 layer
                      launches the linear-scan kernel once;
-  * `decode_step` -- one token against the cache (no kernel).
+  * `decode_step` -- one token against the cache (no kernel);
+  * `loss_fn`     -- next-token cross-entropy plus the weighted MoE
+                     auxiliary loss, what training differentiates.
 
 As in the JAX package, `forward` and `decode_step` apply `logit_softcap`
 and `prefill` does not; prefill and decode drop the MoE auxiliary loss.
-The encoder-decoder is models/encdec.py; training (`loss_fn`) is not
-ported yet (ROADMAP.md, Queue 1 item 6).
+With `cfg.remat` (the default, as in the JAX package) and grad enabled,
+`forward` recomputes each cycle of layers in the backward
+(`torch.utils.checkpoint`, non-reentrant; the JAX package's
+`jax.checkpoint` of its scan body): only a cycle's input stays saved, and
+on the card each RWKV-6 or Mamba-2 layer launches the scan twice a
+training step.  The tail layers are not recomputed, as in JAX.  The
+encoder-decoder is models/encdec.py.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
@@ -43,8 +52,8 @@ from repro_torch.models.layers import (apply_norm, dense, dense_init,
                                        embed_init, embed_lookup, mlp,
                                        mlp_init, norm_init, unembed)
 
-__all__ = ["LMConfig", "init_params", "forward", "prefill", "decode_step",
-           "ATTN_KINDS"]
+__all__ = ["LMConfig", "init_params", "forward", "loss_fn", "prefill",
+           "decode_step", "ATTN_KINDS"]
 
 ATTN_KINDS = ("attn", "swa", "local", "global")
 
@@ -52,8 +61,9 @@ ATTN_KINDS = ("attn", "swa", "local", "global")
 @dataclass(frozen=True)
 class LMConfig:
     """The JAX package's LMConfig field for field, without its execution
-    knobs (use_pallas, interpret, remat, scan_layers); dtype is a torch
-    dtype."""
+    knobs use_pallas, interpret and scan_layers; dtype is a torch dtype.
+    `remat` recomputes each cycle of layers in the backward (module
+    docstring)."""
     name: str
     n_layers: int
     d_model: int
@@ -99,6 +109,7 @@ class LMConfig:
     enc_layers: int = 0
     # execution
     dtype: Any = torch.float32
+    remat: bool = True
     kv_block: int = 1024
     scan_chunk: int = 64
 
@@ -369,25 +380,66 @@ def _positions(B: int, T: int, device):
     return torch.arange(T, device=device).expand(B, T)
 
 
+def _recompute(cfg: LMConfig, fn, *args):
+    """fn(*args), recomputed in the backward when `cfg.remat` and grad is
+    enabled (the JAX package's `jax.checkpoint`)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def forward(cfg: LMConfig, params, tokens):
     """tokens [B, T] -> (logits [B, T, V] f32, aux): aux is the MoE
     auxiliary loss summed over layers, a 0-dim f32 tensor (0 without MoE),
-    as the JAX package's forward returns."""
+    as the JAX package's forward returns.  Each cycle of len(cfg.pattern)
+    layers, with the shared block at its top, is one unit of recomputation
+    (`cfg.remat`); the tail's layers run after the cycles."""
     B, T = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = _positions(B, T, x.device)
     x0 = x
+    kinds, layers = cfg.layer_kinds(), params["layers"]
+
+    def run(lo: int, hi: int, x, aux):
+        for layer in range(lo, hi):
+            if _shared_here(cfg, layer):
+                delta, _ = _shared_forward(cfg, params["shared"], x, x0,
+                                           positions)
+                x = x + delta
+            x, _, a = _block(cfg, kinds[layer], layers[layer], x, positions)
+            aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, (kind, p) in enumerate(zip(cfg.layer_kinds(),
-                                          params["layers"])):
-        if _shared_here(cfg, layer):
-            delta, _ = _shared_forward(cfg, params["shared"], x, x0,
-                                       positions)
-            x = x + delta
-        x, _, a = _block(cfg, kind, p, x, positions)
-        aux = aux + a
+    P = len(cfg.pattern)
+    for c in range(cfg.cycles):
+        x, aux = _recompute(cfg, partial(run, c * P, (c + 1) * P), x, aux)
+    x, aux = run(cfg.cycles * P, cfg.n_layers, x, aux)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _softcap(cfg, unembed(_table(cfg, params), x)), aux
+
+
+def next_token_nll(logits, tokens):
+    """Mean next-token cross-entropy of logits [B, T, V] against tokens
+    [B, T]: logsumexp minus the gold logit, in the logits' dtype, as the
+    JAX package computes it."""
+    logits = logits[:, :-1]
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def loss_fn(cfg: LMConfig, params, batch):
+    """Next-token cross-entropy plus cfg.aux_loss_weight x the MoE
+    auxiliary loss.  batch: {"tokens": [B, T] int}.  Returns (loss,
+    {"nll", "aux"})."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens)
+    nll = next_token_nll(logits, tokens)
+    loss = nll + cfg.aux_loss_weight * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 def prefill(cfg: LMConfig, params, tokens, max_len: int):

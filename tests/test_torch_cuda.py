@@ -32,6 +32,9 @@ the encoder-decoder run no kernel of ours; their einsums and attention are
 held card against CPU in f32: `moe_apply` at mixtral-8x22b's width
 (d_model 6144, d_ff 16384) with 2 experts, and `whisper_encode` at
 whisper-large-v3's width over 1,500 frames (2 layers), both within 1e-3.
+Training: the scan's gradients (kernel forward, the plain version replayed
+in the backward) against the plain version's, each within 1e-3 of its
+envelope, and one AdamW step of rwkv6-3b SMOKE card against CPU.
 """
 import numpy as np
 import pytest
@@ -464,12 +467,91 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+# the scan's gradients, kernel forward against the plain forward: each
+# leaf within this share of its envelope (max |g|); the backward replays
+# the plain version on the same inputs, so the gradients differ only by
+# the cotangent 2 o / N, which the kernel's o carries to within 2e-4.  A
+# bf16 leaf's gradient is rounded to bf16: one rounding apart is up to
+# 2^-7 of the envelope, added to its limit
+SCAN_GRAD_REL = 1e-3
+
+
 @pytest.mark.cuda
-def test_linear_scan_kernel_refuses_gradients(cuda):
-    q, k, v, w, u = _scan_inputs(cuda, 1, 2, 16, 8, 8, torch.float32, 0)
-    q.requires_grad_()
-    with pytest.raises(RuntimeError, match="forward-only"):
-        linear_scan(q, k, v, w, u, mode="rwkv6")
+@pytest.mark.parametrize("mode", ["rwkv6", "ssd"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_linear_scan_kernel_gradients_match_plain_version(cuda, mode,
+                                                          dtype):
+    """Kernel forward, plain backward replayed under autograd: the
+    gradients of q, k, v, w, u and the initial state equal the plain
+    version's (each in its input's dtype), one launch a call."""
+    q, k, v, w, u = _scan_inputs(cuda, 2, 8, 300, 64, 64, dtype, 11)
+    s0 = 0.1 * torch.randn((2, 8, 64, 64), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    args = [t.clone().requires_grad_() for t in (q, k, v, w, u, s0)]
+    ref_args = [t.clone().requires_grad_() for t in (q, k, v, w, u, s0)]
+    uu = lambda a: a[4] if mode == "rwkv6" else None
+    before = linear_scan.launches
+    o, s = linear_scan(*args[:4], uu(args), mode=mode,
+                       initial_state=args[5])
+    assert linear_scan.launches == before + 1
+    ro, rs = linear_scan_chunked(*ref_args[:4], uu(ref_args), mode=mode,
+                                 initial_state=ref_args[5])
+    loss = lambda o, s: torch.mean(o * o) + torch.mean(s * s)
+    grads = torch.autograd.grad(loss(o, s), args, allow_unused=True)
+    ref = torch.autograd.grad(loss(ro, rs), ref_args, allow_unused=True)
+    torch.cuda.synchronize()
+    assert linear_scan.launches == before + 1       # the backward replays
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        if r is None:                                # u in ssd mode
+            assert g is None and mode == "ssd" and i == 4
+            continue
+        assert g.dtype == args[i].dtype
+        scale = float(r.abs().max())
+        limit = SCAN_GRAD_REL + (2.0 ** -7 if g.dtype == torch.bfloat16
+                                 else 0.0)
+        assert float((g.float() - r.float()).abs().max()) <= \
+            limit * scale, i
+
+
+@pytest.mark.cuda
+def test_rwkv6_smoke_train_step_card_against_cpu(cuda):
+    """One AdamW step (train_lm's optimizer) of rwkv6-3b SMOKE in f32, card
+    against CPU from the same weights and tokens: loss and every parameter
+    within 1e-4 (64-wide f32 sums in another order); on the card the scan
+    launched twice a layer (each layer recomputed in the backward)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models.zoo import build
+    from repro_torch.train.optimizer import (adamw, cosine_schedule,
+                                             tree_leaves)
+    from repro_torch.train.train_state import init_state, make_train_step
+    cfg = get_arch("rwkv6-3b").smoke.with_(remat=True)
+    api = build(cfg)
+    batch = TokenStream(vocab=cfg.vocab, batch=2, seq_len=96).batch_at(0)
+    params = api.init(seed=0, device="cpu")
+    out = []
+    for dev in (cuda, "cpu"):
+        o = adamw(lr=cosine_schedule(3e-3, 1, 3), weight_decay=0.1)
+        step = make_train_step(api.loss, o)
+        state = init_state(_to(params, dev), o)
+        before = linear_scan.launches
+        state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in batch.items()})
+        out.append((linear_scan.launches - before, m["loss"].cpu(),
+                    _to_cpu(state["params"])))
+    assert out[0][0] == 2 * cfg.n_layers and out[1][0] == 0
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-4)
+    for a, b in zip(tree_leaves(out[0][2]), tree_leaves(out[1][2])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def _fleet_ticks(srv, ys, ticks=8, per_tick=10):

@@ -45,7 +45,11 @@ def test_every_module_imports_without_jax():
             "repro_torch.configs.zamba2_7b", "repro_torch.models.moe",
             "repro_torch.models.encdec", "repro_torch.configs.mixtral_8x22b",
             "repro_torch.configs.arctic_480b",
-            "repro_torch.configs.whisper_large_v3"} <= set(_modules())
+            "repro_torch.configs.whisper_large_v3",
+            # LM training
+            "repro_torch.data.tokens", "repro_torch.train.loop",
+            "repro_torch.train.train_state",
+            "repro_torch.distributed.compression"} <= set(_modules())
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -108,7 +112,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
     from repro_torch.core.emily import Emily, EmilyConfig
     from repro_torch.core.pinn_sr import PinnSR, PinnSRConfig
-    from repro_torch.launch.train import parser, train_merinda
+    from repro_torch.launch.train import parser, train_lm, train_merinda
     from repro_torch.systems.f8_crusader import F8Crusader
     from repro_torch.systems.simulate import (simulate, simulate_batch,
                                               simulate_from)
@@ -147,6 +151,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                                                        **d),
         "train_merinda": lambda **d: train_merinda(parser().parse_args(
             ["--merinda", "lotka_volterra", "--steps", "1"]), **d),
+        "train_lm": lambda **d: train_lm(parser().parse_args(
+            ["--arch", "rwkv6-3b", "--smoke", "--steps", "1", "--batch",
+             "2", "--seq-len", "16"]), **d),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

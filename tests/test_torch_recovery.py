@@ -239,6 +239,7 @@ def test_train_merinda_runs_on_the_cpu(capsys):
     assert theta.shape == (2, 10) and np.isfinite(mse)
     out = capsys.readouterr().out
     assert "reconstruction MSE" in out and "dy0/dt" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # --arch trains an LM, on the card: without one it raises
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         from repro_torch.launch.train import main
-        main(["--arch", "qwen3-8b"])
+        main(["--arch", "qwen3-8b", "--smoke"])
