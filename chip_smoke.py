@@ -131,7 +131,11 @@ each of which raises on failure (the script then exits nonzero):
              through launch/train.py's `train_lm` (AdamW, cosine schedule,
              the JAX package's defaults): losses finite and falling, the
              scan exactly 2 x 32 launches a step (each layer recomputed in
-             the backward), ms a step, tokens/s, peak memory, one step
+             the backward), ms a step, tokens/s, peak memory; the trained
+             state's every leaf against `state_specs` (shape, dtype,
+             bytes) and launch/dryrun.py's trace of the same step on meta
+             tensors: its peak within 20% of max_memory_allocated, its
+             roofline step time beside the measured one; one step
              profiled; the kill row (4 layers, a checkpoint every 2 steps
              under build/, preempted at step 5, restarted from the newest
              commit: 0 steps lost, params and losses as uninterrupted);
@@ -190,8 +194,6 @@ ROUNDTRIP_TICK, ROUNDTRIP_AFTER, CKPT_EVERY, KILL_TICK, SENSORS = \
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 # the kernels' wide paths: F8Crusader(n_aircraft=k) stacks (n = 3k > 16)
 F8_STACKS, WIDE_RK4_B, WIDE_RK4_T = (6, 11), 2, 300
-# H100 SXM peaks: f32 outside the tensor cores, TF32 on them (dense), HBM
-FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 GRU_TOL = dict(rtol=0.0, atol=1e-5)        # fp32, sums in another order
 RK4_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)      # backward replays the plain path
@@ -258,6 +260,8 @@ SCAN_GRAD_SHAPES = {"rwkv6-3b layer B=4 H=40 T=1024 rwkv6": (4, 40, 1024),
 TRAIN_ARGS = ["--arch", "rwkv6-3b", "--steps", "20", "--batch", "4",
               "--seq-len", "1024", "--seed", "0"]
 TRAIN_TIMED_FROM = 2
+# the dry-run's traced peak against the card's allocated peak, relative
+PLAN_PEAK_TOL = 0.20
 # the kill row: rwkv6-3b at full width, 4 of 32 layers, 8 steps of the
 # training batch, a checkpoint every 2 steps (the 2 newest kept: one is 6.8
 # GB of bf16 params and f32 moments), preempted at step 5, restarted from
@@ -873,71 +877,6 @@ def _eager_ms(fn, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(flops: float, nbytes: float, tf32_flops: float = 0.0):
-    """The larger of the operations' time (f32 ones outside the tensor
-    cores, TF32 ones on them) and the bytes' time, in ms."""
-    t_ops = flops / FP32_FLOPS + tf32_flops / TF32_FLOPS
-    t_bytes = nbytes / HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def _scan_work_pairwise(B, H, T, K, V, C, rwkv6: bool):
-    """Operations of the chunked formulation with every decay in the
-    pairwise form (the count of the earlier kernel), for the causal pairs
-    this T has: per (t, s) pair and k, q*k*decay (3) plus the decay's
-    subtraction and exponential (2); P v; q_read S; the state update; 2 per
-    multiply-add."""
-    ops = 0.0
-    for t0 in range(0, T, C):
-        c = min(C, T - t0)
-        strict = c * (c - 1) // 2
-        diag = c                                    # s == t: bonus or 1
-        pair_ops = (strict * K * 5 + diag * K * 3) if rwkv6 else \
-            ((strict + diag) * K * 5)
-        ops += (pair_ops + (strict + diag) * V * 2    # P v
-                + c * K * (2 + 2 * V)                 # q*2^cw_read, @ S
-                + c * K * (3 + 2 * V)                 # kd, kd^T v
-                + K * (1 + 2 * V))                    # 2^cw_end S
-    return B * H * ops
-
-
-def _scan_work(B, H, T, K, V, C, rwkv6: bool, exact_v: bool):
-    """Operations of the subchunk form the kernel runs (csrc/linear_scan.cu,
-    ref.py::linear_scan_subchunked), for the causal pairs this T has, as
-    (f32, TF32).  Pairs inside one SUBCHUNK-row subchunk keep the pairwise
-    count above; a pair of query subchunk I and earlier key subchunk J is
-    one multiply-add per k on pre-scaled rows, plus one product per (row,
-    J, k) for the factor 2^(p_I - c_J).  The scalings: qs and kj
-    (subtraction, exponential, product), 2^(p_I - c_J) (2) and 2^p_I (1)
-    per subchunk, q_read (1).  The four products -- the off-diagonal
-    blocks of P, P v, q_read S, kd^T v -- run on the tensor cores in
-    3xTF32 form: 3 TF32 multiply-adds for each, 2 where the other side is
-    v and v is exact in TF32 (bf16).  The rest is f32 outside them."""
-    from repro_torch.kernels.linear_scan.ref import SUBCHUNK as sub
-    nv = 2 if exact_v else 3
-    f32 = tf32 = 0.0
-    for t0 in range(0, T, C):
-        c = min(C, T - t0)
-        sizes = [min(sub, c - r) for r in range(0, c, sub)]
-        ns = len(sizes)
-        inner = sum(b * (b - 1) // 2 for b in sizes)       # s < t, same sub
-        outer = c * (c - 1) // 2 - inner                    # earlier sub
-        diag = c
-        pair_ops = (inner * K * 5 + diag * K * 3) if rwkv6 else \
-            ((inner + diag) * K * 5)
-        factor_rows = sum(b * i for i, b in enumerate(sizes))   # (t, J<I)
-        f32 += (pair_ops + factor_rows * K
-                + c * K * 3 * 2                              # qs, kj
-                + ns * (ns - 1) // 2 * K * 2 + ns * K         # pivots
-                + c * K                                      # q_read
-                + c * K * 3                                  # kd
-                + K * (1 + 2 * V))                           # 2^cw_end S
-        tf32 += (3 * outer * K * 2                           # P, off-diag
-                 + nv * (inner + outer + diag) * V * 2       # P v
-                 + 3 * c * K * V * 2                         # q_read @ S
-                 + nv * c * K * V * 2)                       # kd^T v
-    return B * H * f32, B * H * tf32
 # the GRU's shapes, (F, B, T, H, D): the online tick's refit encoder
 # (examples/online_twinning.py; the first, main shape keeps its label), the
 # offline fleet's at the JAX package's default width
@@ -983,7 +922,8 @@ def _timed(fn, plain, flops, nbytes, plain_reps=20, tf32_flops=0.0,
            eager=False):
     """Device ms of the kernel and of its plain version, and the bound;
     with `eager`, also each one's time a call launched from Python."""
-    bound_ms, bound_by = _bound(flops, nbytes, tf32_flops)
+    from repro_torch.kernels.work import bound_ms as bound
+    bound_ms, bound_by = bound(flops, nbytes, tf32_flops)
     out = dict(ms=_device_ms(fn), plain_ms=_device_ms(plain, reps=plain_reps),
                bound_ms=bound_ms, bound_by=bound_by)
     if eager:
@@ -1019,6 +959,8 @@ def kernel_lines(dev, paths, worst):
     from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
     from repro_torch.kernels.rk4.ops import rk4_poly_solve
     from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
+    from repro_torch.kernels.work import (bound_ms, gru_flops, rk4_flops,
+                                          scan_work, scan_work_pairwise)
     from repro_torch.systems.simulate import register_systems
     gen = torch.Generator().manual_seed(2)
     common = lambda name: dict(
@@ -1033,8 +975,7 @@ def kernel_lines(dev, paths, worst):
         for label, (F, B, T, H, D) in GRU_SHAPES.items():
             args = _gru_inputs(gen, dev, (F, B), F, T, H, D)
             outs = gru_scan(*args)
-            # products only (2 per multiply-add): x Wx, h Wh_zr, (r*h) Wh_c
-            flops = 2.0 * F * B * T * (D * 3 * H + 3 * H * H)
+            flops = gru_flops(F, B, T, H, D)
             nbytes = sum(t.nbytes for t in (*args, *outs))
             timings[label] = _timed(lambda a=args: gru_scan(*a),
                                     lambda a=args: gru_scan_ref(*a), flops,
@@ -1065,8 +1006,7 @@ def kernel_lines(dev, paths, worst):
             Bf, n, L, O = int(np.prod(lead)), lib.n, lib.size, idx.shape[1]
             T = us.shape[-2]
             ys = rk4_poly_solve(theta, y0, us, dt=dt, library=lib)
-            # per right-hand side: (O-1) products per term for Phi, n*L FMAs
-            flops = 4.0 * Bf * T * (L * (O - 1) + 2 * n * L)
+            flops = rk4_flops(Bf, T, n, L, O)
             nbytes = sum(t.nbytes for t in (theta, y0, us, idx, ys))
             flat = [t.reshape((Bf,) + t.shape[len(lead):])
                     for t in (theta, y0, us)]
@@ -1096,15 +1036,15 @@ def kernel_lines(dev, paths, worst):
                                              torch.bfloat16), None)
             o, sf = linear_scan(*args, mode=mode, chunk=C)
             nbytes = sum(t.nbytes for t in (*args, o, sf) if t is not None)
-            f32, tf32 = _scan_work(B, H, T, K, V, C, rwkv6, True)
+            f32, tf32 = scan_work(B, H, T, K, V, C, rwkv6, True)
             timings[label] = _timed(
                 lambda a=args, m=mode: linear_scan(*a, mode=m, chunk=C),
                 lambda a=args, m=mode: linear_scan_chunked(*a, mode=m,
                                                            chunk=C),
                 f32, nbytes, plain_reps=3, tf32_flops=tf32,
                 eager=label == "T=2048")
-            pairwise[label] = _bound(
-                _scan_work_pairwise(B, H, T, K, V, C, rwkv6), nbytes)[0]
+            pairwise[label] = bound_ms(
+                scan_work_pairwise(B, H, T, K, V, C, rwkv6), nbytes)[0]
             if label == "T=2048":
                 scan_launches(lambda a=args: linear_scan(
                     *a, mode="rwkv6", chunk=C))
@@ -2020,15 +1960,31 @@ def _scan_launches(cfg) -> int:
 def train_full(dev, paths):
     """rwkv6-3b whole, bf16, through `train_lm` (TRAIN_ARGS): every loss
     finite and the last 5 below the first 5 on average; the scan launched
-    exactly 2 x 32 times a step; then one more step under the
-    profiler."""
+    exactly 2 x 32 times a step; the trained state and the dry-run of the
+    step against the card (`check_plan`); then one more step under the
+    profiler.  The dry-run traces on the host's CPU in a process of its
+    own while the card trains."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import Shape
+    from repro_torch.launch.dryrun import plan
+    from repro_torch.launch.train import parser
+    args = parser().parse_args(TRAIN_ARGS)
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        planned = pool.submit(plan, args.arch, Shape(
+            "phase12_train", "train", args.seq_len, args.batch),
+            grad_accum=args.grad_accum)
+        _train_full(dev, paths, args, planned)
+
+
+def _train_full(dev, paths, args, planned):
     from repro_torch.configs import get_arch
     from repro_torch.data.tokens import TokenStream
-    from repro_torch.launch.train import parser, train_lm
+    from repro_torch.launch.train import train_lm
     from repro_torch.models.zoo import build
     from repro_torch.train.optimizer import adamw, cosine_schedule
     from repro_torch.train.train_state import make_train_step
-    args = parser().parse_args(TRAIN_ARGS)
     cfg = get_arch(args.arch).config
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2063,6 +2019,7 @@ def train_full(dev, paths):
           f"launches {got} = {_scan_launches(cfg)} a step x {args.steps}; "
           f"losses {' '.join(f'{x:.4f}' for x in losses)} (first 5 mean "
           f"{first:.4f}, last 5 {last:.4f})")
+    check_plan(args, cfg, state, peak * 2**30, p50, planned.result())
     api = build(cfg, max_position=args.seq_len)
     step = make_train_step(api.loss, adamw(lr=cosine_schedule(
         args.lr, 10, args.steps), weight_decay=0.1), donate=True)
@@ -2073,6 +2030,66 @@ def train_full(dev, paths):
              lambda: step(state, batch))
     del state, step, batch
     torch.cuda.empty_cache()
+
+
+def check_plan(args, cfg, state, peak_bytes: float, step_s: float,
+               rec: dict):
+    """The planner against the card, on the state `train_full` trained:
+    every leaf of `state_specs(param_specs(), adamw)` equal to the card's
+    in shape, dtype and bytes (totals printed); then `rec`, the dry-run of
+    the same step (launch/dryrun.py's `plan`: 4 x 1,024 tokens, grad_accum
+    1, donated state, traced on meta tensors), its peak held to the card's
+    `max_memory_allocated` within PLAN_PEAK_TOL, its roofline step time
+    and roofline_fraction printed beside the measured median step."""
+    from repro_torch.models.zoo import build
+    from repro_torch.train.checkpoint import tree_flatten
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_state import state_specs
+    t0 = time.perf_counter()
+    api = build(cfg, max_position=args.seq_len)
+    specs = state_specs(api.param_specs(), adamw(weight_decay=0.1))
+    (got, paths), (want, want_paths) = tree_flatten(state), \
+        tree_flatten(specs)
+    if paths != want_paths:
+        raise RuntimeError(f"{cfg.name}: the trained state's leaves "
+                           f"{len(paths)} differ from state_specs' "
+                           f"{len(want_paths)}")
+    bad = [(p, tuple(g.shape), g.dtype, g.nbytes,
+            tuple(w.shape), w.dtype, w.nbytes)
+           for p, g, w in zip(paths, got, want)
+           if (g.shape, g.dtype, g.nbytes) != (w.shape, w.dtype, w.nbytes)]
+    if bad:
+        raise RuntimeError(f"{cfg.name}: {len(bad)} leaves differ from "
+                           f"state_specs, first {bad[0]}")
+    gib = lambda tree: sum(t.nbytes for t in tree_flatten(tree)[0]) / 2**30
+    print(f"{cfg.name} state against state_specs: {len(paths)} leaves equal "
+          f"in shape, dtype and bytes; params {gib(state['params']):.2f} / "
+          f"{gib(specs['params']):.2f} GiB, AdamW state "
+          f"{gib(state['opt']):.2f} / {gib(specs['opt']):.2f} GiB (card / "
+          f"specs)")
+    traced, terms = rec["memory"]["total_bytes"], rec["roofline"]
+    gap = traced / peak_bytes - 1
+    print(f"{cfg.name} dry-run of the step (traced in {rec['trace_s']:.1f} "
+          f"s, {rec['cost']['aten_ops']} aten ops, linear_scan "
+          f"{rec['kernels']['linear_scan']['calls']} calls): traced peak "
+          f"{traced / 2**30:.2f} GiB (arguments "
+          f"{rec['memory']['argument_bytes'] / 2**30:.2f}, temp "
+          f"{rec['memory']['temp_bytes'] / 2**30:.2f}) against "
+          f"max_memory_allocated {peak_bytes / 2**30:.2f} GiB "
+          f"({100 * gap:+.1f}%); roofline step "
+          f"{terms['step_time_s'] * 1e3:.1f} ms ({terms['dominant']}: compute "
+          f"{terms['compute_s'] * 1e3:.1f} ms for "
+          f"{rec['cost']['flops']:.4e} flops, memory "
+          f"{terms['memory_s'] * 1e3:.1f} ms for "
+          f"{rec['cost']['bytes_accessed']:.4e} bytes) against the measured "
+          f"{step_s * 1e3:.1f} ms a step ({terms['step_time_s'] / step_s:.3f} "
+          f"of it), roofline_fraction {terms['roofline_fraction']:.4f}; the "
+          f"check took {time.perf_counter() - t0:.1f} s after training")
+    print(f"dry-run record: {json.dumps(rec)}")
+    if abs(gap) > PLAN_PEAK_TOL:
+        raise RuntimeError(f"{cfg.name}: traced peak {traced} bytes is "
+                           f"{100 * gap:+.1f}% off the card's {peak_bytes:.0f}"
+                           f" (limit {100 * PLAN_PEAK_TOL:.0f}%)")
 
 
 def train_resume(dev, paths):
@@ -3247,6 +3264,11 @@ def main() -> int:
     lib_path = backend.build_library(verbose=True)
     backend.load_library()
     print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    from repro_torch.launch.mesh import HW
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"device memory: {total} bytes ({total / 2**30:.2f} GiB) by "
+          f"torch.cuda.get_device_properties(0).total_memory; the planner's "
+          f"HW.HBM_BYTES {HW.HBM_BYTES} ({HW.HBM_BYTES / 2**30:.2f} GiB)")
 
     print("== 2. kernels against their plain versions")
     worst = check_kernels(dev)

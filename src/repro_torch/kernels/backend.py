@@ -19,9 +19,16 @@ kernels/linear_scan/ops.py) dispatches on the device of the tensors it is
 given: a CPU tensor goes to the plain version, a CUDA tensor launches the
 kernel or raises.  A build or launch
 failure is never caught and routed to the plain version.
+
+A META tensor (the dry-run's trace, launch/opcount.py) takes the card's
+route through the wrapper's `autograd.Function`, so its saved tensors and
+replayed backward are the card's; in place of the launch the forward only
+shapes its outputs and reports the kernel's work (kernels/work.py) to the
+sinks registered with `meta_sink`.  It is not counted as a launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,7 +41,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["resolve_device", "build_library", "load_library", "check_cuda",
-           "cuda_stream", "ARCH_FLAGS", "MAX_SMEM"]
+           "cuda_stream", "meta_sink", "meta_kernel", "ARCH_FLAGS",
+           "MAX_SMEM"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -45,6 +53,7 @@ MAX_SMEM = 232448      # dynamic shared memory a Hopper block may opt into
 
 _lib = None
 _lib_lock = threading.Lock()
+_meta_sinks: list = []
 
 
 def resolve_device(device=None) -> torch.device:
@@ -169,3 +178,22 @@ def check_cuda(lib, err: int, what: str) -> None:
 def cuda_stream(device: torch.device) -> int:
     """Raw handle of PyTorch's current stream on `device`."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@contextlib.contextmanager
+def meta_sink(fn):
+    """Within the block, fn(name, flops=, tf32_flops=, nbytes=) hears of
+    every kernel a meta trace reaches (in place of its launch)."""
+    _meta_sinks.append(fn)
+    try:
+        yield fn
+    finally:
+        _meta_sinks.remove(fn)
+
+
+def meta_kernel(name: str, *, flops: float, nbytes: float,
+                tf32_flops: float = 0.0) -> None:
+    """A kernel reached on meta tensors: tell the registered sinks its
+    work (f32 operations, TF32 ones, bytes read and written)."""
+    for fn in list(_meta_sinks):
+        fn(name, flops=flops, tf32_flops=tf32_flops, nbytes=nbytes)

@@ -19,7 +19,9 @@ one hidden unit: with its Wh columns in registers up to H = 64, above that
 with Wh in the block's shared memory, up to H =
 `lib.gru_scan_max_hidden(D)` (136 at D = 4).  Wider H takes the kernel's
 wide path (up to 1024 threads a sequence, Wh read through L2), so every
-width runs on the card.  No padding happens here.
+width runs on the card.  No padding happens here.  Meta tensors take
+the CUDA route with a forward that only shapes its outputs
+(kernels/backend.py).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.gru.ref import gru_scan_ref
+from repro_torch.kernels.work import gru_flops
 
 __all__ = ["gru_scan", "gru_scan_kernel"]
 
@@ -39,12 +42,14 @@ def gru_scan_kernel(xs, h0, wx, wh, b):
 
     xs [F, B, T, D], h0 [F, B, H], wx [F, D, 3H], wh [F, H, 3H], b [F, 3H],
     all fp32 contiguous on one CUDA device -> (hs [F, B, T, H], hT [F, B, H]).
+    On meta tensors nothing launches: the outputs are shaped and the work
+    reported (backend.meta_kernel).
     """
     F, B, T, D = xs.shape
     H = h0.shape[-1]
     dev = xs.device
     for name, t in (("xs", xs), ("h0", h0), ("wx", wx), ("wh", wh), ("b", b)):
-        if t.device != dev or t.device.type != "cuda":
+        if t.device != dev or t.device.type not in ("cuda", "meta"):
             raise ValueError(f"gru_scan kernel: {name} on {t.device}, "
                              f"expected the CUDA device {dev}")
         if t.dtype != torch.float32:
@@ -52,9 +57,14 @@ def gru_scan_kernel(xs, h0, wx, wh, b):
                             "expected float32")
         if not t.is_contiguous():
             raise ValueError(f"gru_scan kernel: {name} is not contiguous")
-    lib = backend.load_library()
     hs = torch.empty((F, B, T, H), dtype=torch.float32, device=dev)
     hT = torch.empty((F, B, H), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        backend.meta_kernel("gru_scan", flops=gru_flops(F, B, T, H, D),
+                            nbytes=sum(t.nbytes for t in (xs, h0, wx, wh, b,
+                                                          hs, hT)))
+        return hs, hT
+    lib = backend.load_library()
     if F == 0 or B == 0:
         return hs, h0.clone()
     err = lib.gru_scan_launch(
@@ -98,7 +108,8 @@ def gru_scan(xs, h0, wx, wh, b):
     docstring for the shared and fleet weight forms.
 
     Returns (hs [..., B, T, H], hT [..., B, H]).  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise.
+    version; CUDA tensors launch the kernel or raise; meta tensors take
+    the CUDA route without a launch.
     """
     H = h0.shape[-1]
     fleet = wx.ndim == 3
@@ -116,7 +127,7 @@ def gru_scan(xs, h0, wx, wh, b):
         raise ValueError(f"fleet GRU weights {tuple(wx.shape)} need xs "
                          f"[F, B, T, Din] with the same F, got "
                          f"{tuple(xs.shape)}")
-    if xs.device.type != "cuda":
+    if xs.device.type not in ("cuda", "meta"):
         return gru_scan_ref(xs, h0, wx, wh, b)
     lead = xs.shape[:-2]
     T, d_in = xs.shape[-2:]

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.linear_scan.ref import MODES, linear_scan_chunked
+from repro_torch.kernels.work import scan_work
 
 __all__ = ["linear_scan", "linear_scan_kernel"]
 
@@ -32,7 +33,8 @@ def linear_scan_kernel(q, k, v, w, u, s0, *, mode: str, chunk: int):
     q, k [BH, T, K] and v [BH, T, V] in one of float32 / bfloat16; w
     [BH, T, K] float32; u [H, K] float32 or None; s0 [BH, K, V] float32 or
     None; all contiguous on one CUDA device.  Returns (o [BH, T, V],
-    final_state [BH, K, V]), float32.
+    final_state [BH, K, V]), float32.  On meta tensors nothing launches:
+    the outputs are shaped and the work reported (backend.meta_kernel).
     """
     BH, T, K = q.shape
     V = v.shape[-1]
@@ -42,7 +44,7 @@ def linear_scan_kernel(q, k, v, w, u, s0, *, mode: str, chunk: int):
     for name, t in named:
         if t is None:
             continue
-        if t.device != dev or t.device.type != "cuda":
+        if t.device != dev or t.device.type not in ("cuda", "meta"):
             raise ValueError(f"linear_scan kernel: {name} on {t.device}, "
                              f"expected the CUDA device {dev}")
         if not t.is_contiguous():
@@ -69,6 +71,14 @@ def linear_scan_kernel(q, k, v, w, u, s0, *, mode: str, chunk: int):
               torch.zeros((BH, K, V), dtype=torch.float32, device=dev))
         return o, sf
     sf = torch.empty((BH, K, V), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        f32, tf32 = scan_work(BH, 1, T, K, V, C, mode == "rwkv6",
+                              q.dtype == torch.bfloat16)
+        backend.meta_kernel("linear_scan", flops=f32, tf32_flops=tf32,
+                            nbytes=sum(t.nbytes for _, t in named
+                                       if t is not None) + o.nbytes
+                            + sf.nbytes)
+        return o, sf
     # scratch of the three launches: each chunk's state contribution,
     # overwritten by the state it reads, and its decay exp(cw_end)
     N = -(-T // C)
@@ -142,7 +152,8 @@ def linear_scan(q, k, v, w, u=None, *, mode: str = "ssd", chunk: int = 64,
 
     Returns (o [B, H, T, V] f32, final_state [B, H, K, V] f32); the math is
     kernels/linear_scan/ref.py's.  CPU tensors run the plain chunked
-    version; CUDA tensors launch the kernel or raise.
+    version; CUDA tensors launch the kernel or raise; meta tensors take
+    the CUDA route without a launch.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -162,7 +173,7 @@ def linear_scan(q, k, v, w, u=None, *, mode: str = "ssd", chunk: int = 64,
                          f"be [B, H, K, V] = [{B}, {H}, {K}, {V}]")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         return linear_scan_chunked(q, k, v, w, u, mode=mode, chunk=chunk,
                                    initial_state=initial_state)
     if k.dtype != q.dtype or v.dtype != q.dtype:

@@ -9,7 +9,9 @@ replays the plain version under autograd, as the JAX `custom_vjp` does.
 The kernel masks its own ragged batch edge and reads no input channel when
 m == 0, so there is neither padding nor a dummy channel here.  Every (n, m)
 runs on the card: a warp an instance up to n = 16 and 1+n+m = 32, a block
-an instance past that (csrc/rk4_poly.cu's wide path).
+an instance past that (csrc/rk4_poly.cu's wide path).  Meta tensors
+take the CUDA route with a forward that only shapes its outputs
+(kernels/backend.py).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
+from repro_torch.kernels.work import rk4_flops
 
 __all__ = ["rk4_poly_solve", "rk4_poly_kernel"]
 
@@ -30,7 +33,8 @@ def rk4_poly_kernel(theta, y0, us, term_idx, dt: float):
     -> ys [B, T+1, n].  A warp integrates an instance up to n =
     `lib.rk4_poly_max_n()` and 1+n+m = `lib.rk4_poly_max_aug()` (16 and
     32); past either, a block does (the wide path), so every width the JAX
-    kernel takes runs on the card."""
+    kernel takes runs on the card.  On meta tensors nothing launches: the
+    output is shaped and the work reported (backend.meta_kernel)."""
     B, n, L = theta.shape
     T, m = us.shape[1], us.shape[2]
     O = term_idx.shape[1]
@@ -39,7 +43,7 @@ def rk4_poly_kernel(theta, y0, us, term_idx, dt: float):
                            ("y0", y0, torch.float32),
                            ("us", us, torch.float32),
                            ("term_idx", term_idx, torch.int32)):
-        if t.device != dev or t.device.type != "cuda":
+        if t.device != dev or t.device.type not in ("cuda", "meta"):
             raise ValueError(f"rk4 kernel: {name} on {t.device}, expected "
                              f"the CUDA device {dev}")
         if t.dtype != dtype:
@@ -47,8 +51,13 @@ def rk4_poly_kernel(theta, y0, us, term_idx, dt: float):
                             f"{dtype}")
         if not t.is_contiguous():
             raise ValueError(f"rk4 kernel: {name} is not contiguous")
-    lib = backend.load_library()
     ys = torch.empty((B, T + 1, n), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        backend.meta_kernel("rk4_poly", flops=rk4_flops(B, T, n, L, O),
+                            nbytes=sum(t.nbytes for t in (theta, y0, us,
+                                                          term_idx, ys)))
+        return ys
+    lib = backend.load_library()
     if B == 0:
         return ys
     err = lib.rk4_poly_launch(
@@ -95,7 +104,8 @@ def rk4_poly_solve(theta, y0, us, *, dt: float, library):
     theta: [..., B, n, L], y0: [..., B, n], us: [..., B, T, m]
     -> ys [..., B, T+1, n] (row 0 is y0).  `library` is a
     repro_torch.core.library.PolyLibrary.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise.
+    version; CUDA tensors launch the kernel or raise; meta tensors take
+    the CUDA route without a launch.
     """
     n, L = theta.shape[-2:]
     if n != library.n or L != library.size:
@@ -117,7 +127,7 @@ def rk4_poly_solve(theta, y0, us, *, dt: float, library):
     y0 = y0.reshape(Bf, n)
     us = us.reshape(Bf, T, library.m)
     term_idx = library.indices_on(theta.device)
-    if theta.device.type != "cuda":
+    if theta.device.type not in ("cuda", "meta"):
         ys = rk4_poly_solve_ref(theta, y0, us, dt, term_idx)
     else:
         ys = _RK4Kernel.apply(theta.contiguous(), y0.contiguous(),

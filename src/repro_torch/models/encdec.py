@@ -29,12 +29,13 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.kv_cache import whisper_cache_init
 from repro_torch.models.layers import (apply_norm, embed_init, embed_lookup,
-                                       mlp, mlp_init, norm_init,
+                                       generator, mlp, mlp_init, norm_init,
                                        sinusoidal_positions, unembed)
 from repro_torch.models.transformer import (LMConfig, _fill_attn_cache,
                                             _recompute, next_token_nll)
 
-__all__ = ["whisper_init", "whisper_encode", "whisper_decode_forward",
+__all__ = ["whisper_init", "whisper_param_specs", "whisper_cache_specs",
+           "whisper_encode", "whisper_decode_forward",
            "whisper_loss", "whisper_prefill", "whisper_decode_step",
            "whisper_cache_init"]
 
@@ -66,9 +67,10 @@ def whisper_init(cfg: LMConfig, seed: int = 0, device=None,
                  max_position: int = 4096) -> dict:
     """Random parameters from `seed`, drawn by a torch.Generator on the
     target device; the decoder's learned position table has `max_position`
-    rows.  `device=None` means the CUDA card (raises without one)."""
+    rows.  `device=None` means the CUDA card (raises without one); "meta"
+    lays the tree out without storage (`whisper_param_specs`)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     dt = cfg.dtype
     dec_pos = torch.randn((max_position, cfg.d_model), dtype=torch.float32,
                           device=device, generator=gen) * 0.01
@@ -82,6 +84,17 @@ def whisper_init(cfg: LMConfig, seed: int = 0, device=None,
                        for _ in range(cfg.n_layers)],
         "dec_norm": norm_init(cfg.d_model, cfg.norm, dt, device),
     }
+
+
+def whisper_param_specs(cfg: LMConfig, max_position: int = 4096) -> dict:
+    """`whisper_init`'s tree as meta tensors: no allocation, no draws."""
+    return whisper_init(cfg, device="meta", max_position=max_position)
+
+
+def whisper_cache_specs(cfg: LMConfig, B: int, max_len: int,
+                        T_enc: int | None = None) -> dict:
+    """`whisper_cache_init`'s tree as meta tensors."""
+    return whisper_cache_init(cfg, B, max_len, T_enc, device="meta")
 
 
 def _kw(cfg: LMConfig) -> dict:

@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.kernels.backend import resolve_device
 
-__all__ = ["cache_init", "whisper_cache_init", "BATCH_AXIS", "n_shared"]
+__all__ = ["cache_init", "cache_specs", "whisper_cache_init", "BATCH_AXIS",
+           "n_shared"]
 
 BATCH_AXIS = 0
 INT_MAX = torch.iinfo(torch.int32).max
@@ -97,6 +98,12 @@ def cache_init(cfg, B: int, max_len: int, device=None) -> dict:
                         head_dim=d_in // cfg.shared_n_heads)
             for _ in range(n_shared(cfg))]
     return cache
+
+
+def cache_specs(cfg, B: int, max_len: int) -> dict:
+    """`cache_init`'s tree as meta tensors: shapes and dtypes, no storage
+    (the dry-run's input spec)."""
+    return cache_init(cfg, B, max_len, device="meta")
 
 
 def whisper_cache_init(cfg, B: int, max_len: int, T_enc: int | None = None,

@@ -13,10 +13,29 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense_init", "dense", "norm_init", "apply_norm", "qk_norm_init",
+__all__ = ["generator", "dense_init", "dense", "norm_init", "apply_norm", "qk_norm_init",
            "apply_qk_norm", "mlp_init", "mlp", "embed_init", "embed_lookup",
            "unembed", "rope_frequencies", "apply_rope",
            "sinusoidal_positions"]
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device.  Every init function
+    places its leaves on `gen.device` and passes `gen` to its draws; a
+    draw into a meta tensor neither reads nor advances the generator."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(device, seed: int = 0) -> torch.Generator:
+    """The generator the init functions draw from on `device`.  On the meta
+    device the same init code lays out the parameter tree with no storage
+    and no draws: the allocation-free specs cannot drift from the draws."""
+    if torch.device(device).type == "meta":
+        return _MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -156,12 +175,13 @@ def unembed(params: dict, x: torch.Tensor,
     [V, d] table is neither copied nor cast per call -- the cost is that of
     the bf16 product alone.  Elsewhere (f32 tables, CPU tensors) both
     operands are taken in f32.  PyTorch has no derivative for the
-    `out_dtype` product, so it runs inside `_MatmulF32Out`.
+    `out_dtype` product, so it runs inside `_MatmulF32Out`.  A meta table
+    takes the card's route: the dry-run traces the card's program.
     """
     w = params["w"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if w.is_cuda and w.dtype in (torch.bfloat16, torch.float16) \
+    if w.device.type in ("cuda", "meta") and w.dtype in (torch.bfloat16, torch.float16) \
             and x2.dtype == w.dtype:
         logits = _MatmulF32Out.apply(x2, w)
     else:

@@ -69,7 +69,8 @@ def _causal_conv(w, b, x, init=None):
     out = xp[:, 0:T, :] * w[0]
     for i in range(1, W):
         out = out + xp[:, i:i + T, :] * w[i]
-    return F.silu(out + b), xp[:, T:, :]                  # new conv tail
+    # the new conv tail, a copy: a view would keep all of xp alive
+    return F.silu(out + b), xp[:, T:, :].clone()
 
 
 def _split_proj(zxbcdt, d_inner, state, n_heads):

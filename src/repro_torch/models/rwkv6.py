@@ -110,7 +110,8 @@ def rwkv6_time_mix(p, x, *, head_dim: int, last_x=None, state=None,
                                initial_state=state)
     o = o.transpose(1, 2).reshape(B, T, d).to(x.dtype)
     o = apply_norm(p["ln_x"], o, "layernorm") * g
-    return dense(p["wo"], o), (x[:, -1, :], new_state)
+    # a copy: a view of the last token would keep all of x alive in the cache
+    return dense(p["wo"], o), (x[:, -1, :].clone(), new_state)
 
 
 def rwkv6_channel_mix(p, x, *, last_x=None):
@@ -122,7 +123,7 @@ def rwkv6_channel_mix(p, x, *, last_x=None):
     xr = x + sx * p["cm_maa_r"]
     k = torch.square(F.relu(dense(p["cm_wk"], xk)))
     kv = dense(p["cm_wv"], k)
-    return torch.sigmoid(dense(p["cm_wr"], xr)) * kv, x[:, -1, :]
+    return torch.sigmoid(dense(p["cm_wr"], xr)) * kv, x[:, -1, :].clone()
 
 
 # --------------------------------------------------------------------------- #

@@ -49,10 +49,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.kv_cache import cache_init
 from repro_torch.models.layers import (apply_norm, dense, dense_init,
-                                       embed_init, embed_lookup, mlp,
-                                       mlp_init, norm_init, unembed)
+                                       embed_init, embed_lookup, generator,
+                                       mlp, mlp_init, norm_init, unembed)
 
-__all__ = ["LMConfig", "init_params", "forward", "loss_fn", "prefill",
+__all__ = ["LMConfig", "init_params", "param_specs", "forward", "loss_fn", "prefill",
            "decode_step", "ATTN_KINDS"]
 
 ATTN_KINDS = ("attn", "swa", "local", "global")
@@ -185,9 +185,10 @@ def _shared_block_init(gen, cfg: LMConfig) -> dict:
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from `seed`, drawn by a torch.Generator on the
     target device (billions of parameters are not drawn on the host).
-    `device=None` means the CUDA card (raises without one)."""
+    `device=None` means the CUDA card (raises without one); "meta" lays
+    the tree out without storage (`param_specs`)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     params = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype),
         "layers": [_block_init(gen, cfg, kind) for kind in cfg.layer_kinds()],
@@ -198,6 +199,12 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype)
     return params
+
+
+def param_specs(cfg: LMConfig) -> dict:
+    """The tree `init_params` returns, every leaf a meta tensor of its
+    shape and dtype: nothing is allocated or drawn (the dry-run)."""
+    return init_params(cfg, device="meta")
 
 
 # --------------------------------------------------------------------------- #

@@ -24,7 +24,7 @@ from repro_torch.train.optimizer import (Optimizer, apply_updates,
                                          tree_leaves, tree_map,
                                          tree_unflatten)
 
-__all__ = ["init_state", "make_train_step", "value_and_grad"]
+__all__ = ["init_state", "state_specs", "make_train_step", "value_and_grad"]
 
 PyTree = Any
 
@@ -33,6 +33,13 @@ def init_state(params: PyTree, opt: Optimizer) -> dict:
     device = tree_leaves(params)[0].device
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def state_specs(param_specs: PyTree, opt: Optimizer) -> dict:
+    """`init_state` over meta leaves (a model API's `param_specs()`): the
+    train state's tree, every leaf a meta tensor, the step counters on the
+    meta device too.  Nothing is allocated (the dry-run)."""
+    return init_state(param_specs, opt)
 
 
 def value_and_grad(loss_fn: Callable, params: PyTree, batch):

@@ -34,7 +34,9 @@ held card against CPU in f32: `moe_apply` at mixtral-8x22b's width
 whisper-large-v3's width over 1,500 frames (2 layers), both within 1e-3.
 Training: the scan's gradients (kernel forward, the plain version replayed
 in the backward) against the plain version's, each within 1e-3 of its
-envelope, and one AdamW step of rwkv6-3b SMOKE card against CPU.
+envelope, and one AdamW step of rwkv6-3b SMOKE card against CPU.  The
+allocation-free specs: every leaf's shape, dtype and bytes equal to what
+init allocates on the card (rwkv6, zamba2, whisper SMOKE).
 """
 import numpy as np
 import pytest
@@ -670,3 +672,38 @@ def test_whisper_encode_card_against_cpu(cuda):
         want = encdec.whisper_encode(cfg, host, enc_x)
     assert got.shape == (1, 1500, cfg.d_model)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b",
+                                  "whisper-large-v3"])
+def test_specs_bytes_equal_init_on_the_card(cuda, arch):
+    """The allocation-free specs against what init allocates on the card:
+    every leaf's shape, dtype and bytes for the parameters (SMOKE), the
+    AdamW state, the cache and a batch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models.zoo import build
+    from repro_torch.train.checkpoint import tree_flatten
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_state import init_state, state_specs
+
+    def layout(tree):
+        return [(tuple(t.shape), t.dtype, t.nbytes)
+                for t in tree_flatten(tree)[0]]
+
+    cfg = get_arch(arch).smoke
+    api = build(cfg)
+    params = api.init(seed=0, device=cuda)
+    assert layout(api.param_specs()) == layout(params)
+    assert layout(state_specs(api.param_specs(), adamw())) == layout(
+        init_state(params, adamw()))
+    assert layout(api.cache_specs(2, 64)) == layout(
+        api.cache_init(2, 64, device=cuda))
+    batch = TokenStream(vocab=cfg.vocab, batch=2, seq_len=64,
+                        d_frontend=cfg.d_model if api.is_encdec else None
+                        ).batch_at(0)
+    specs = api.batch_specs(2, 64)
+    assert set(specs) == set(batch)
+    assert [tuple(specs[k].shape) for k in sorted(specs)] == [
+        batch[k].shape for k in sorted(batch)]

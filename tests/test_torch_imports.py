@@ -49,7 +49,26 @@ def test_every_module_imports_without_jax():
             # LM training
             "repro_torch.data.tokens", "repro_torch.train.loop",
             "repro_torch.train.train_state",
-            "repro_torch.distributed.compression"} <= set(_modules())
+            "repro_torch.distributed.compression",
+            # the planner: specs' sharding rules, mesh, cells, op counter
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.cells", "repro_torch.launch.opcount",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.kernels.work"} <= set(_modules())
+
+
+def test_core_exports_equal_jax():
+    """`repro_torch.core` re-exports the JAX package's `repro.core` names,
+    each from the port's own submodule."""
+    import repro.core
+    import repro_torch.core
+    assert repro_torch.core.__all__ == repro.core.__all__
+    from repro_torch.core import FleetMerinda, fit, stlsq
+    from repro_torch.core.fleet import FleetMerinda as fleet_cls
+    assert FleetMerinda is fleet_cls and callable(fit) and callable(stlsq)
+    for name in repro_torch.core.__all__:
+        assert getattr(repro_torch.core, name).__module__.startswith(
+            "repro_torch.core."), name
 
 
 def _imported_roots(path: Path) -> set[str]:
