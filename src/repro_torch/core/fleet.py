@@ -11,7 +11,10 @@ non-finite gets zero gradients so NaNs never reach its params.  The JAX
 sharding annotations have no counterpart on one GPU and are dropped.
 
 `reset_slot` writes the slot's rows IN PLACE (JAX's `.at[].set` copies);
-`train_step_per_slot` returns a new state and leaves its input alone.
+`train_step_per_slot` returns a new state and leaves its input alone, and
+times its forward, backward and update as the spans `refit.forward`,
+`refit.backward` and `refit.update` of `tracer` (the serving server's; a
+disabled one by default).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.core.merinda import Merinda, MerindaConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.obs import Tracer
 from repro_torch.train.optimizer import (adamw, apply_updates, tree_leaves,
                                          tree_map, tree_unflatten)
 
@@ -38,9 +42,11 @@ class FleetConfig:
 
 
 class FleetMerinda:
-    def __init__(self, cfg: FleetConfig, *, device=None):
+    def __init__(self, cfg: FleetConfig, *, device=None,
+                 tracer: Tracer | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tracer = Tracer(enabled=False) if tracer is None else tracer
         self.model = Merinda(cfg.merinda)
         # clipping is PER TWIN in train_step_per_slot: a global clip would
         # couple slots through the norm
@@ -66,14 +72,28 @@ class FleetMerinda:
         """Per-slot (loss [F], ok [F], grads): gradients of the summed
         per-slot losses, clipped to `grad_clip` per slot, and zeroed (with
         the loss) for slots whose step is non-finite."""
+        params, loss = self._forward(params, y_win, u_win, sparsify)
+        return self._clip(params, loss, self._backward(params, loss))
+
+    def _forward(self, params, y_win, u_win, sparsify):
+        """(params as leaves that take a gradient, loss [F] with its
+        graph)."""
         params = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
             loss, _ = self.model.loss(params, (y_win, u_win), sparsify)
-            leaves = tree_leaves(params)
+        return params, loss
+
+    def _backward(self, params, loss) -> list:
+        """Gradients of the summed per-slot losses, one per leaf."""
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
             grads = torch.autograd.grad(loss.sum(), leaves,
                                         allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, grads)]
+
+    def _clip(self, params, loss, grads):
+        """Per-slot clip and finite check: (loss [F], ok [F], grads)."""
         loss = loss.detach()
         F = loss.shape[0]
         per_slot = lambda v, g: v.reshape((F,) + (1,) * (g.ndim - 1))
@@ -97,13 +117,20 @@ class FleetMerinda:
         """One step for every slot.  y_win [F, S_B, k+1, n], u_win
         [F, S_B, k, m].  The sparsify warmup is per slot.  Returns (state,
         loss [F], ok [F]); loss is 0 where the step was skipped."""
+        span = self.tracer.span
         sparsify = state["steps"] > self.cfg.sparsify_after     # [F] bool
-        loss, ok, grads = self.slot_grads(state["params"], y_win, u_win,
-                                          sparsify)
-        updates, opt = self.opt.update(grads, state["opt"], state["params"])
-        return ({"params": apply_updates(state["params"], updates),
-                 "opt": opt, "step": state["step"] + 1,
-                 "steps": state["steps"] + 1}, loss, ok)
+        with span("refit.forward"):
+            params, loss = self._forward(state["params"], y_win, u_win,
+                                         sparsify)
+        with span("refit.backward"):
+            grads = self._backward(params, loss)
+        with span("refit.update"):
+            loss, ok, grads = self._clip(params, loss, grads)
+            updates, opt = self.opt.update(grads, state["opt"],
+                                           state["params"])
+            return ({"params": apply_updates(state["params"], updates),
+                     "opt": opt, "step": state["step"] + 1,
+                     "steps": state["steps"] + 1}, loss, ok)
 
     def train_step(self, state, y_win, u_win):
         """One step for every slot; returns the mean loss over slots whose

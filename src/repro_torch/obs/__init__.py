@@ -11,10 +11,14 @@ registry.py   `MetricRegistry` — thread-safe counters / gauges / fixed-bucket
               exposition; `snapshot()` a JSON-able dump.  Bounded memory:
               histograms are O(buckets) no matter how long the server runs.
 
-tracing.py    `Tracer` — nested spans around the serving stages
-              (tick -> flush/guard/schedule/refit, pump flushes, per-shard
-              ticks), recorded into a ring-bounded buffer and exported as
-              Chrome trace-event JSON loadable in Perfetto.  `sample_every`
+tracing.py    `Tracer` — nested spans at every boundary of the serving tick
+              and the what-if query (tick -> flush/guard/schedule/refit and
+              their parts, down to the refit's forward, backward, update,
+              promote and every wait on the device), each carrying its id,
+              parent and root, recorded into a ring-bounded buffer and
+              exported as Chrome trace-event JSON loadable in Perfetto, with
+              an anchor onto the profiler's clock; under torch.profiler each
+              span also opens a `twin.<name>` range.  `sample_every`
               records every Nth root span's subtree; `enabled=False` makes
               spans no-op context managers (near-free).
 

@@ -1,17 +1,65 @@
 """Per-tick span tracing exportable as Chrome trace-event JSON (Perfetto).
 
 A metric histogram tells you the p99 got worse; a trace tells you WHICH tick
-and WHICH stage.  `Tracer.span()` wraps the serving stages in nested spans —
+and WHICH stage.  `Tracer.span()` wraps every boundary of the serving tick
+and of the what-if query in nested spans.  A span marked *wait* wraps a call
+that blocks the host on the device (`.cpu()`, `.numpy()`, `synchronize`);
+every other span only enqueues device work, so its host time is dispatch:
 
+    ingest_many                 (one a call; args chunks, samples)
     sharded_tick
-    └─ tick (shard=0)
-       ├─ flush            (+ pump_flush spans on the BackgroundPump thread)
+    └─ tick (shard=i)
+       ├─ flush
+       │  ├─ pump_flush         host merge and pad (on the BackgroundPump
+       │  │                     thread with async ingest); args rows,
+       │  │                     padded_rows, samples, padded_samples, dropped
+       │  └─ flush.apply        host-to-device copies and the ring scatter
        ├─ guard
+       │  ├─ guard.score        rotation select, ring read, rollout; args
+       │  │                     scored, width
+       │  ├─ guard.wait         wait: the scores to the host
+       │  └─ guard.judge        EMA fold, events
        ├─ schedule
+       │  ├─ schedule.plan
+       │  └─ schedule.apply     evictions, releases, admissions; args
+       │                        admitted, evicted
        └─ refit
+          ├─ refit.windows
+          ├─ refit.step (step=k)   one for each of steps_per_tick
+          │  ├─ refit.forward   Merinda.loss (encoder, head, sparsify, decode)
+          │  ├─ refit.backward  autograd through both kernels' backwards
+          │  └─ refit.update    per-slot clip, finite check, AdamW
+          ├─ refit.wait         wait: the loss vector to the host
+          ├─ promote            args candidates, promoted
+          │  ├─ promote.recover
+          │  ├─ promote.score   ring read and the two guard rollouts
+          │  ├─ promote.wait    wait: both score vectors to the host
+          │  └─ promote.deploy  decision, theta scatter, history push
+          └─ tick.wait          wait: the tick's closing synchronize
+    scenario (twin, k, horizon, level, effective_k)
+    ├─ scenario.rollout         upload, RK4 launch, ensemble reductions
+    └─ scenario.wait            wait: the copies to the host
 
-— recorded as Chrome trace-event "complete" events (`ph: "X"`) that load
-directly in Perfetto (https://ui.perfetto.dev) or `chrome://tracing`.
+recorded as Chrome trace-event "complete" events (`ph: "X"`) that load
+directly in Perfetto (https://ui.perfetto.dev) or `chrome://tracing`.  A
+span may add args once it knows them (`with tracer.span(...) as sp:
+sp.note(promoted=3)`).
+
+**Cause and request ids.**  Every event carries, in its args, its own `id`,
+its `parent`'s (0 for a root) and its `root`'s: the outermost span of its
+thread (a `tick` under its `sharded_tick`, a `scenario`, an `ingest_many`).
+A reader computes a span's self time (its duration less its children's) and
+groups spans by tick or by query without matching times.
+
+**Clocks.**  Spans are timed with `perf_counter_ns`; `ts` is microseconds
+since the tracer was built.  `to_chrome_trace()` writes the anchor pair
+(`perf_counter_ns`, `time_ns`) taken at that moment into `otherData.clock`,
+so `time_ns + 1000 * ts` places a span on the Unix-epoch clock that
+torch.profiler's events use.  While a torch.profiler session records, each
+recorded span also opens a `torch.profiler.record_function` range named
+`twin.<span name>`, which lands in the profiler's trace on the device
+events' own clock: a device kernel is placed under the span that launched
+it, an idle gap under the span the host was in.  No profiler, no range.
 
 Designed for an always-on service:
 
@@ -21,23 +69,45 @@ Designed for an always-on service:
   * **sampling knob** — `sample_every=N` records every Nth ROOT span and its
     whole subtree, so steady-state tracing cost scales down linearly while
     sampled ticks stay internally complete (a half-recorded tick is useless);
-  * **near-free when off** — `enabled=False` makes `span()` return a shared
-    no-op context manager: no clock reads, no allocation, one attribute
-    check.  The 64-twin tracing-on-vs-off parity test and the 10k-twin
-    overhead column in bench_out/online_scale.csv hold the cost honest.
+  * **near-free when off** — `enabled=False` makes `span()` return the shared
+    no-op `NULL_SPAN`: no clock read, no allocation, no profiler range, one
+    attribute check.  `enabled` may be flipped at run time.  On an H100's
+    host a span costs 0.2-0.8 us off and 4-15 us recorded (PERF.md);
+    `tests/test_torch_obs.py` holds tick reports and served models
+    identical with tracing on and off.
 
 Spans may begin on any thread (the pump flush records from its worker
 thread); each thread renders as its own Perfetto track via `tid`, with
-thread-name metadata events emitted on first sight.
+thread-name metadata events emitted on first sight, and keeps its own
+stack of open spans.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
 from collections import deque
 
-__all__ = ["Tracer", "NULL_SPAN"]
+__all__ = ["Tracer", "NULL_SPAN", "PROFILER_PREFIX"]
+
+PROFILER_PREFIX = "twin."      # torch.profiler ranges mirroring spans
+
+_profiler = None               # (enabled(), record_function), on first use
+
+
+def _profiler_hooks():
+    """torch's profiler switch and range, resolved on the first recorded
+    span, so that this module imports nothing beyond the standard library."""
+    global _profiler
+    if _profiler is None:
+        try:
+            import torch
+            _profiler = (torch.autograd._profiler_enabled,
+                         torch.profiler.record_function)
+        except ImportError:
+            _profiler = (lambda: False, None)
+    return _profiler
 
 
 class _NullSpan:
@@ -51,12 +121,15 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def note(self, **args):
+        pass
+
 
 NULL_SPAN = _NullSpan()
 
 
 class _SkipSpan:
-    """Depth bookkeeping for an UNSAMPLED subtree — records nothing, but the
+    """Stack bookkeeping for an UNSAMPLED subtree — records nothing, but the
     root/child distinction must survive so the next root re-rolls the
     sampling decision."""
 
@@ -66,18 +139,22 @@ class _SkipSpan:
         self._tls = tls
 
     def __enter__(self):
-        self._tls.depth += 1
+        self._tls.stack.append(0)
         return self
 
     def __exit__(self, *exc):
-        self._tls.depth -= 1
+        self._tls.stack.pop()
         return False
+
+    def note(self, **args):
+        pass
 
 
 class _Span:
-    """One recorded span: clock on enter, event emission on exit."""
+    """One recorded span: ids and clock on enter, event emission on exit."""
 
-    __slots__ = ("_tr", "_tls", "name", "cat", "args", "_t0")
+    __slots__ = ("_tr", "_tls", "name", "cat", "args", "_id", "_parent",
+                 "_root", "_t0", "_range")
 
     def __init__(self, tracer, tls, name, cat, args):
         self._tr = tracer
@@ -86,15 +163,33 @@ class _Span:
         self.cat = cat
         self.args = args
 
+    def note(self, **args):
+        """Add args known only once the span has run part of its work."""
+        self.args.update(args)
+
     def __enter__(self):
-        self._tls.depth += 1
-        self._t0 = time.perf_counter()
+        stack = self._tls.stack
+        self._id = next(self._tr._ids)
+        if stack:
+            self._parent, self._root = stack[-1], stack[0]
+        else:
+            self._parent, self._root = 0, self._id
+        stack.append(self._id)
+        enabled, record_function = _profiler_hooks()
+        if enabled():
+            self._range = record_function(PROFILER_PREFIX + self.name)
+            self._range.__enter__()
+        else:
+            self._range = None
+        self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        t1 = time.perf_counter()
-        self._tls.depth -= 1
-        self._tr._record(self.name, self.cat, self._t0, t1, self.args)
+        t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._tls.stack.pop()
+        self._tr._record(self, t1)
         return False
 
 
@@ -103,7 +198,8 @@ class Tracer:
 
     Thread-safe: spans may be opened concurrently from the serving thread
     and the ingest/pump threads.  Sampling is decided at ROOT spans only
-    (depth 0 on the calling thread) and inherited by the whole subtree.
+    (an empty span stack on the calling thread) and inherited by the whole
+    subtree.
     """
 
     def __init__(self, *, capacity: int = 65536, sample_every: int = 1,
@@ -117,7 +213,10 @@ class Tracer:
         self.sample_every = sample_every
         self.dropped_events = 0       # overwritten by the ring (monotonic)
         self._events: deque = deque(maxlen=capacity)
-        self._t0 = time.perf_counter()
+        # the anchor: one reading of both clocks, taken together
+        self._t0_ns = time.perf_counter_ns()
+        self._epoch_ns = time.time_ns()
+        self._ids = itertools.count(1)
         self._lock = threading.Lock()
         self._roots = 0
         self._tids: dict[int, int] = {}      # thread ident -> compact tid
@@ -127,8 +226,8 @@ class Tracer:
     # ------------------------------------------------------------------ #
     def _tls(self):
         tls = self._local
-        if not hasattr(tls, "depth"):
-            tls.depth = 0
+        if not hasattr(tls, "stack"):
+            tls.stack = []        # ids of the open spans (0: unsampled)
             tls.skip = False
         return tls
 
@@ -141,7 +240,7 @@ class Tracer:
         if not self.enabled:
             return NULL_SPAN
         tls = self._tls()
-        if tls.depth == 0:
+        if not tls.stack:
             with self._lock:
                 n = self._roots
                 self._roots += 1
@@ -164,14 +263,14 @@ class Tracer:
                         "args": {"name": threading.current_thread().name}})
         return tid
 
-    def _record(self, name, cat, t0, t1, args) -> None:
-        ev = {"name": name, "cat": cat, "ph": "X",
-              "ts": (t0 - self._t0) * 1e6,          # microseconds
-              "dur": (t1 - t0) * 1e6,
-              "pid": 0, "tid": self._tid()}
-        if args:
-            ev["args"] = {k: (v if isinstance(v, (int, float, str, bool))
-                              else str(v)) for k, v in args.items()}
+    def _record(self, sp: _Span, t1: int) -> None:
+        args = {k: (v if isinstance(v, (int, float, str, bool))
+                    else str(v)) for k, v in sp.args.items()}
+        args.update(id=sp._id, parent=sp._parent, root=sp._root)
+        ev = {"name": sp.name, "cat": sp.cat, "ph": "X",
+              "ts": (sp._t0 - self._t0_ns) / 1e3,        # microseconds
+              "dur": (t1 - sp._t0) / 1e3,
+              "pid": 0, "tid": self._tid(), "args": args}
         with self._lock:
             if len(self._events) == self.capacity:
                 self.dropped_events += 1
@@ -193,7 +292,9 @@ class Tracer:
             events = self._thread_meta + list(self._events)
         return {"traceEvents": events, "displayTimeUnit": "ms",
                 "otherData": {"producer": "repro_torch.obs.tracing",
-                              "dropped_events": self.dropped_events}}
+                              "dropped_events": self.dropped_events,
+                              "clock": {"perf_counter_ns": self._t0_ns,
+                                        "time_ns": self._epoch_ns}}}
 
     def write(self, path) -> None:
         """Dump the trace to `path` as Perfetto-loadable JSON."""

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.rk4.ops import rk4_poly_solve
+from repro_torch.obs import Tracer
 
 __all__ = [
     "ScenarioConfig", "ScenarioRefused", "ScenarioResult", "ScenarioRunner",
@@ -94,12 +95,15 @@ class ScenarioResult:
 
 class ScenarioRunner:
     """Fused ensemble x K rollout engine over a PolyLibrary model family.
-    Stateless after construction."""
+    Stateless after construction; `tracer` (the building server's) times
+    the rollout and the wait for its copies."""
 
-    def __init__(self, library, dt: float, cfg: ScenarioConfig):
+    def __init__(self, library, dt: float, cfg: ScenarioConfig, *,
+                 tracer: Tracer | None = None):
         self.lib = library
         self.dt = float(dt)
         self.cfg = cfg
+        self.tracer = Tracer(enabled=False) if tracer is None else tracer
 
     @torch.no_grad()
     def rollout(self, theta_hist, count: int, y0, us) -> tuple:
@@ -107,28 +111,34 @@ class ScenarioRunner:
         so far, us [K, H, m] -> numpy (center [K, H+1, n], lo, hi,
         confidence [K])."""
         E, n, L = theta_hist.shape
-        us = torch.as_tensor(np.asarray(us, np.float32),
-                             device=theta_hist.device)
-        if us.ndim != 3:
-            raise ValueError(f"us must be [K, H, m], got {tuple(us.shape)}")
-        K = us.shape[0]
-        live_idx = max(count - 1, 0) % E
-        live = theta_hist[live_idx]
-        # unfilled ring slots fall back to the live theta: a twin with one
-        # deploy still answers, with a zero-width envelope
-        valid = torch.arange(E, device=theta_hist.device) < count
-        ens = torch.where(valid[:, None, None], theta_hist, live[None])
-        theta = ens[:, None].expand(E, K, n, L)
-        y0b = y0.to(torch.float32)[None, None].expand(E, K, n)
-        usb = us[None].expand((E,) + tuple(us.shape))
-        ys = rk4_poly_solve(theta, y0b, usb, dt=self.dt, library=self.lib)
-        ys = torch.nan_to_num(ys, nan=_BLOWUP, posinf=_BLOWUP,
-                              neginf=-_BLOWUP).clamp(-_BLOWUP, _BLOWUP)
-        center = ys[live_idx]
-        lo = ys.amin(dim=0)
-        hi = ys.amax(dim=0)
-        # normalized mean envelope width per scenario, squashed to (0, 1]
-        scale = torch.std(center, dim=(1, 2), correction=0) + 1e-6
-        spread = torch.mean(hi - lo, dim=(1, 2)) / scale
-        confidence = 1.0 / (1.0 + spread)
-        return tuple(t.cpu().numpy() for t in (center, lo, hi, confidence))
+        span = self.tracer.span
+        with span("scenario.rollout"):
+            us = torch.as_tensor(np.asarray(us, np.float32),
+                                 device=theta_hist.device)
+            if us.ndim != 3:
+                raise ValueError(
+                    f"us must be [K, H, m], got {tuple(us.shape)}")
+            K = us.shape[0]
+            live_idx = max(count - 1, 0) % E
+            live = theta_hist[live_idx]
+            # unfilled ring slots fall back to the live theta: a twin with
+            # one deploy still answers, with a zero-width envelope
+            valid = torch.arange(E, device=theta_hist.device) < count
+            ens = torch.where(valid[:, None, None], theta_hist, live[None])
+            theta = ens[:, None].expand(E, K, n, L)
+            y0b = y0.to(torch.float32)[None, None].expand(E, K, n)
+            usb = us[None].expand((E,) + tuple(us.shape))
+            ys = rk4_poly_solve(theta, y0b, usb, dt=self.dt,
+                                library=self.lib)
+            ys = torch.nan_to_num(ys, nan=_BLOWUP, posinf=_BLOWUP,
+                                  neginf=-_BLOWUP).clamp(-_BLOWUP, _BLOWUP)
+            center = ys[live_idx]
+            lo = ys.amin(dim=0)
+            hi = ys.amax(dim=0)
+            # normalized mean envelope width per scenario, squashed to (0, 1]
+            scale = torch.std(center, dim=(1, 2), correction=0) + 1e-6
+            spread = torch.mean(hi - lo, dim=(1, 2)) / scale
+            confidence = 1.0 / (1.0 + spread)
+        with span("scenario.wait"):
+            return tuple(t.cpu().numpy()
+                         for t in (center, lo, hi, confidence))

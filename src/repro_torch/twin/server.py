@@ -248,11 +248,13 @@ class TwinServer:
             self.fleet = FleetMerinda(FleetConfig(
                 merinda=m, fleet=cfg.refit_slots,
                 windows_per_twin=cfg.windows_per_twin, lr=cfg.lr,
-                sparsify_after=cfg.sparsify_after), device=self.device)
+                sparsify_after=cfg.sparsify_after), device=self.device,
+                tracer=self.tracer)
             self.guard = DivergenceGuard(self.fleet.model.lib, m.dt,
                                          cfg.guard)
             self.scenario_runner = ScenarioRunner(self.fleet.model.lib, m.dt,
-                                                  cfg.scenario)
+                                                  cfg.scenario,
+                                                  tracer=self.tracer)
         self._rstate = self.ring.init()
         self._init = (TorchInitSource(self.fleet,
                                       cfg.seed if seed is None else seed)
@@ -498,12 +500,16 @@ class TwinServer:
         """Batched `ingest`: `batch` iterates (twin_id, y) or (twin_id, y,
         u) chunks.  Returns the number of SAMPLES staged.  Same
         thread-safety and backpressure contract as `ingest`."""
-        staged = 0
-        for chunk in batch:
-            tid, y = chunk[0], chunk[1]
-            u = chunk[2] if len(chunk) > 2 else None
-            self.ingest(tid, y, u, force=force)
-            staged += np.atleast_2d(np.asarray(y)).shape[0]
+        staged = chunks = 0
+        with self.tracer.span("ingest_many", cat="ingest",
+                              **self._labels) as sp:
+            for chunk in batch:
+                tid, y = chunk[0], chunk[1]
+                u = chunk[2] if len(chunk) > 2 else None
+                self.ingest(tid, y, u, force=force)
+                staged += np.atleast_2d(np.asarray(y)).shape[0]
+                chunks += 1
+            sp.note(chunks=chunks, samples=staged)
         return staged
 
     def _ingest_backpressure(self, row: int, y, u) -> None:
@@ -535,13 +541,19 @@ class TwinServer:
         span and a latency histogram.  With async ingest this runs on the
         pump thread, so the span lands on the pump's own trace track."""
         m = self.cfg.merinda
-        with self.tracer.span("pump_flush", cat="ingest", **self._labels):
+        with self.tracer.span("pump_flush", cat="ingest",
+                              **self._labels) as sp:
             t0 = time.perf_counter()
             batch = prepare_flush(self._staging.swap(),
                                   capacity=self.cfg.capacity,
                                   pad=self.cfg.flush_pad,
                                   scratch=self._scratch, n=m.n, m=m.m)
             self._m_prepare.observe(time.perf_counter() - t0)
+            if batch is not None:
+                B, C = batch.ys.shape[:2]
+                sp.note(rows=len(batch.received), padded_rows=B,
+                        samples=int(batch.counts.sum()),
+                        padded_samples=B * C, dropped=batch.dropped)
         return batch
 
     @property
@@ -566,9 +578,13 @@ class TwinServer:
 
     def _flush(self) -> int:
         if self._pump is not None:
-            return sum(self._apply(b) for b in self._pump.drain())
+            with self.tracer.span("flush.apply"):
+                return sum(self._apply(b) for b in self._pump.drain())
         batch = self._prepare_timed()
-        return self._apply(batch) if batch is not None else 0
+        if batch is None:
+            return 0
+        with self.tracer.span("flush.apply"):
+            return self._apply(batch)
 
     def drain(self) -> None:
         """Barrier: every sample ingested before this call reaches the ring.
@@ -670,62 +686,71 @@ class TwinServer:
         live = self._guard_live
         if not live:
             return [], 0
-        if self._rotation is None:
-            # full scan: one rollout over the whole store.  Degraded: score
-            # every other tick
-            if shed and self.tick_count % 2 == 0:
-                return [], 0
-            rows = torch.arange(self.cfg.max_twins, device=self.device)
-            ys, us = self.ring.latest(self._rstate, rows, gw)
-            scores = self.guard.score(self._theta[:-1], ys, us).cpu().numpy()
-            recs = list(live.values())
-            srows = np.fromiter((r.ring_slot for r in recs), np.int64,
-                                count=len(recs))
-            raw = scores[srows]
-        else:
-            # budgeted rotation: fixed-width rollout.  Degraded: a smaller
-            # width, no carry
-            if self._live_dirty:
-                self._live_rows = np.fromiter(sorted(live), np.int64,
-                                              count=len(live))
-                self._live_dirty = False
-            if shed:
-                width = max(1, self._rotation.budget
-                            // max(1, self.cfg.degradation.guard_shrink))
-                pick = self._rotation.select(self._live_rows, self._div,
-                                             self.cfg.guard.refit_threshold,
-                                             budget=width, carry=0)
+        # full scan, degraded: score every other tick
+        if self._rotation is None and shed and self.tick_count % 2 == 0:
+            return [], 0
+        span = self.tracer.span
+        with span("guard.score") as sp:
+            if self._rotation is None:
+                # full scan: one rollout over the whole store
+                width = self.cfg.max_twins
+                rows = torch.arange(width, device=self.device)
+                ys, us = self.ring.latest(self._rstate, rows, gw)
+                scores = self.guard.score(self._theta[:-1], ys, us)
+                recs = list(live.values())
+                srows = np.fromiter((r.ring_slot for r in recs), np.int64,
+                                    count=len(recs))
             else:
-                width = self._rotation.size
-                pick = self._rotation.select(self._live_rows, self._div,
-                                             self.cfg.guard.refit_threshold)
-            rows_np = np.full((width,), self._scratch, np.int64)
-            rows_np[:len(pick)] = pick
-            rows = self._rows(rows_np)
-            ys, us = self.ring.latest(self._rstate, rows, gw)
-            scores = self.guard.score(self._theta[rows], ys,
-                                      us).cpu().numpy()
-            recs = [live[int(row)] for row in pick]
-            srows = np.asarray(pick, np.int64)
-            raw = scores[:len(recs)]
-        # one vectorized EMA fold publishes the smoothed scores into the
-        # packed divergence column; the record fields mirror them
-        smoothed = self.guard.fold_into(self._div, srows, raw)
-        self.packed.div32[srows] = smoothed
-        events: list[GuardEvent] = []
-        score_hist = self._guard_obs.score
-        for rec, score, div in zip(recs, raw, smoothed):
-            score_hist.observe(float(score))
-            rec.divergence = float(div)
-            ev = self.guard.judge(rec.twin_id, rec.divergence, self.tick_count)
-            kind = ev.kind if ev else "OK"
-            if kind != self._guard_state[rec.twin_id]:
-                self._guard_state[rec.twin_id] = kind
-                if ev:
-                    events.append(ev)
-                    self._guard_obs.events[ev.kind].inc()
-        self.events.extend(events)
-        self._guard_obs.scored.inc(len(recs))
+                # budgeted rotation: fixed-width rollout.  Degraded: a
+                # smaller width, no carry
+                if self._live_dirty:
+                    self._live_rows = np.fromiter(sorted(live), np.int64,
+                                                  count=len(live))
+                    self._live_dirty = False
+                if shed:
+                    width = max(1, self._rotation.budget
+                                // max(1, self.cfg.degradation.guard_shrink))
+                    pick = self._rotation.select(
+                        self._live_rows, self._div,
+                        self.cfg.guard.refit_threshold, budget=width,
+                        carry=0)
+                else:
+                    width = self._rotation.size
+                    pick = self._rotation.select(
+                        self._live_rows, self._div,
+                        self.cfg.guard.refit_threshold)
+                rows_np = np.full((width,), self._scratch, np.int64)
+                rows_np[:len(pick)] = pick
+                rows = self._rows(rows_np)
+                ys, us = self.ring.latest(self._rstate, rows, gw)
+                scores = self.guard.score(self._theta[rows], ys, us)
+                recs = [live[int(row)] for row in pick]
+                srows = np.asarray(pick, np.int64)
+            sp.note(scored=len(recs), width=width)
+        with span("guard.wait"):
+            scores = scores.cpu().numpy()
+        with span("guard.judge"):
+            raw = (scores[srows] if self._rotation is None
+                   else scores[:len(recs)])
+            # one vectorized EMA fold publishes the smoothed scores into the
+            # packed divergence column; the record fields mirror them
+            smoothed = self.guard.fold_into(self._div, srows, raw)
+            self.packed.div32[srows] = smoothed
+            events: list[GuardEvent] = []
+            score_hist = self._guard_obs.score
+            for rec, score, div in zip(recs, raw, smoothed):
+                score_hist.observe(float(score))
+                rec.divergence = float(div)
+                ev = self.guard.judge(rec.twin_id, rec.divergence,
+                                      self.tick_count)
+                kind = ev.kind if ev else "OK"
+                if kind != self._guard_state[rec.twin_id]:
+                    self._guard_state[rec.twin_id] = kind
+                    if ev:
+                        events.append(ev)
+                        self._guard_obs.events[ev.kind].inc()
+            self.events.extend(events)
+            self._guard_obs.scored.inc(len(recs))
         return events, len(recs)
 
     # ------------------------------------------------------------------ #
@@ -764,6 +789,7 @@ class TwinServer:
                ) -> float | None:
         if not self._slot_twin:
             return None
+        span = self.tracer.span
         if defer:
             # degraded (level >= 2): slots hold; converged candidates may
             # still ship (level < 3)
@@ -772,17 +798,22 @@ class TwinServer:
                     slot for slot, tid in self._slot_twin.items()
                     if self.twins[tid].steps_in_slot >= self.cfg.deploy_after]
                 if deployable:
-                    y_win, u_win = self._slot_windows()
+                    with span("refit.windows"):
+                        y_win, u_win = self._slot_windows()
                     self._promote(deployable, y_win, u_win)
             return None
-        y_win, u_win = self._slot_windows()
+        with span("refit.windows"):
+            y_win, u_win = self._slot_windows()
         loss_vec = None
-        for _ in range(self.cfg.steps_per_tick):
-            self._fstate, loss_vec, _ = self.fleet.train_step_per_slot(
-                self._fstate, y_win, u_win)
+        for k in range(self.cfg.steps_per_tick):
+            with span("refit.step", step=k):
+                self._fstate, loss_vec, _ = self.fleet.train_step_per_slot(
+                    self._fstate, y_win, u_win)
         # report loss over ASSIGNED slots only — scratch-parked slots train
         # on zero windows and would dilute the mean toward zero
-        loss = float(np.mean(loss_vec.cpu().numpy()[sorted(self._slot_twin)]))
+        with span("refit.wait"):
+            losses = loss_vec.cpu().numpy()
+        loss = float(np.mean(losses[sorted(self._slot_twin)]))
         deployable = []
         for slot, tid in self._slot_twin.items():
             rec = self.twins[tid]
@@ -804,12 +835,25 @@ class TwinServer:
         ships if it is outright good or a margin improvement.
         """
         thresh = self.cfg.guard.refit_threshold
-        rows = self._rows(self._slot_ring)
-        thetas = self.fleet.recover_all(self._fstate, y_win, u_win)
-        ys_g, us_g = self.ring.latest(self._rstate, rows,
-                                      self.cfg.guard.window)
-        cand = self.guard.score(thetas, ys_g, us_g).cpu().numpy()
-        inc = self.guard.score(self._theta[rows], ys_g, us_g).cpu().numpy()
+        span = self.tracer.span
+        with span("promote", candidates=len(deployable)) as sp:
+            with span("promote.recover"):
+                thetas = self.fleet.recover_all(self._fstate, y_win, u_win)
+            with span("promote.score"):
+                rows = self._rows(self._slot_ring)
+                ys_g, us_g = self.ring.latest(self._rstate, rows,
+                                              self.cfg.guard.window)
+                cand = self.guard.score(thetas, ys_g, us_g)
+                inc = self.guard.score(self._theta[rows], ys_g, us_g)
+            with span("promote.wait"):
+                cand, inc = cand.cpu().numpy(), inc.cpu().numpy()
+            with span("promote.deploy"):
+                promoted = self._deploy_winners(deployable, thetas, cand,
+                                                inc, thresh)
+            sp.note(promoted=len(promoted))
+
+    def _deploy_winners(self, deployable, thetas, cand, inc, thresh) -> set:
+        """The promote's decision and deploy: returns the promoted slots."""
         promoted = set()
         for slot in deployable:
             rec = self.twins[self._slot_twin[slot]]
@@ -840,6 +884,7 @@ class TwinServer:
             self.packed.set_divergence(rec.ring_slot, rec.divergence)
             if rec.samples >= self._guard_min:
                 self._guard_add(rec)
+        return promoted
 
     # ------------------------------------------------------------------ #
     def tick(self) -> TickReport:
@@ -872,13 +917,18 @@ class TwinServer:
             # registry snapshot, since async ingest threads may register
             # twins mid-tick
             with span("schedule"):
-                if isinstance(self.scheduler, PackedRefitScheduler):
-                    plan = self.scheduler.plan(self.packed, self._slot_ring,
-                                               max_active=self._max_active)
-                else:
-                    plan = self.scheduler.plan(self.twin_snapshot(),
-                                               max_active=self._max_active)
-                self._apply_plan(plan)
+                with span("schedule.plan"):
+                    if isinstance(self.scheduler, PackedRefitScheduler):
+                        plan = self.scheduler.plan(
+                            self.packed, self._slot_ring,
+                            max_active=self._max_active)
+                    else:
+                        plan = self.scheduler.plan(
+                            self.twin_snapshot(),
+                            max_active=self._max_active)
+                with span("schedule.apply", admitted=len(plan.admit),
+                          evicted=len(plan.evict)):
+                    self._apply_plan(plan)
             t3 = time.perf_counter()
             with span("refit"):
                 if defer_refit:
@@ -887,8 +937,9 @@ class TwinServer:
                     self._m_shed["promote"].inc()
                 loss = self._refit(defer=defer_refit,
                                    skip_promote=skip_promote)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                with span("tick.wait"):
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
             t4 = time.perf_counter()
         latency = t4 - t0
         self.latencies.append(latency)
@@ -986,13 +1037,14 @@ class TwinServer:
             requested = 1 if k is None else int(k)
         level = self._degradation.level
         with self.tracer.span("scenario", twin=int(twin_id), k=requested,
-                              horizon=int(horizon), level=level):
+                              horizon=int(horizon), level=level) as sp:
             t0 = time.perf_counter()
             try:
                 eff = effective_k(requested, level, scfg)
             except ScenarioRefused:
                 self._m_scn_refused.inc()
                 raise
+            sp.note(effective_k=eff)
             if eff < requested:
                 self._m_scn_shrunk.inc()
             us_eff = (np.zeros((eff, horizon, m), np.float32)

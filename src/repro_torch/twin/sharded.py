@@ -276,12 +276,15 @@ class ShardedTwinServer:
         """Batched `ingest` over (twin_id, y[, u]) chunks; returns the
         number of SAMPLES staged (journal-only samples for dead shards
         count — they WILL be served after replay)."""
-        staged = 0
-        for chunk in batch:
-            tid, y = chunk[0], chunk[1]
-            u = chunk[2] if len(chunk) > 2 else None
-            self.ingest(tid, y, u, force=force)
-            staged += np.atleast_2d(np.asarray(y)).shape[0]
+        staged = chunks = 0
+        with self.tracer.span("ingest_many", cat="ingest") as sp:
+            for chunk in batch:
+                tid, y = chunk[0], chunk[1]
+                u = chunk[2] if len(chunk) > 2 else None
+                self.ingest(tid, y, u, force=force)
+                staged += np.atleast_2d(np.asarray(y)).shape[0]
+                chunks += 1
+            sp.note(chunks=chunks, samples=staged)
         return staged
 
     def deploy(self, twin_id: int, theta) -> None:
