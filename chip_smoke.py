@@ -160,6 +160,10 @@ rows, the offline ones:
 simulate, each Table I fit and its scoring, F-8 training and recovery,
 the offline fleet; and phase 9's in-process runs) and read just after it;
 a path that launches none of its kernels, or one it does not run, fails.
+The RK4 backward is counted the same way, by route: every path whose
+refit or fit runs a backward must launch the adjoint kernel, and no path
+may replay the plain version (every shape here is the warp path's); each
+RK4 gradient case of phase 2 takes exactly one adjoint launch.
 A federated run's coordinator must launch nothing; its workers' counts
 are read from them before and after the run ("<path>_workers").
 
@@ -296,7 +300,11 @@ TRAIN_REL = 1e-3
 # the CUDA kernels of csrc/, as the profiler names them
 OWN_KERNELS = ("gru_scan_kernel", "rk4_poly_kernel", "chunk_state_kernel",
                "state_scan_kernel", "chunk_output_kernel")
-PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
+# a path whose refit or fit runs a backward launches the RK4 adjoint too;
+# a replay of the plain RK4 backward ("rk4_replay") is on no path: every
+# shape driven here is the warp path's
+REFIT = ("gru_scan", "rk4_poly", "rk4_adjoint")
+PATH_KERNELS = {"tick": REFIT, "predict": ("rk4_poly",),
                 "scenario": ("rk4_poly",), "lm_prefill": ("linear_scan",),
                 "lm_decode": (),
                 # the LM zoo: every Mamba-2 layer's prefill runs the scan;
@@ -314,29 +322,29 @@ PATH_KERNELS = {"tick": ("gru_scan", "rk4_poly"), "predict": ("rk4_poly",),
                 # recover encodes; every score integrates); F-8 training,
                 # its recovery, the offline fleet
                 "simulate": ("rk4_poly",),
-                "table1_merinda": ("gru_scan", "rk4_poly"),
+                "table1_merinda": REFIT,
                 "table1_emily": (), "table1_pinn_sr": (),
                 "table1_score": ("gru_scan", "rk4_poly"),
-                "train_f8": ("gru_scan", "rk4_poly"),
+                "train_f8": REFIT,
                 "f8_recover": ("gru_scan", "rk4_poly"),
-                "fleet_offline": ("gru_scan", "rk4_poly"),
+                "fleet_offline": REFIT,
                 # crash safety: every run serves ticks
-                "crash_roundtrip": ("gru_scan", "rk4_poly"),
-                "crash_checkpointed": ("gru_scan", "rk4_poly"),
-                "crash_replay": ("gru_scan", "rk4_poly"),
-                "crash_torn": ("gru_scan", "rk4_poly"),
-                "reference_planner": ("gru_scan", "rk4_poly"),
-                "async_ingest": ("gru_scan", "rk4_poly"),
+                "crash_roundtrip": REFIT,
+                "crash_checkpointed": REFIT,
+                "crash_replay": REFIT,
+                "crash_torn": REFIT,
+                "reference_planner": REFIT,
+                "async_ingest": REFIT,
                 # the fleet: every shard ticks in this process; a federated
                 # run's coordinator launches nothing (its workers do, and
                 # report their launches as "<path>_workers")
-                "conformance_single": ("gru_scan", "rk4_poly"),
-                "conformance_sharded": ("gru_scan", "rk4_poly"),
+                "conformance_single": REFIT,
+                "conformance_sharded": REFIT,
                 "conformance_federated": (),
-                "fleet_sharded": ("gru_scan", "rk4_poly"),
-                "fleet_parity": ("gru_scan", "rk4_poly"),
-                "scale_1k": ("gru_scan", "rk4_poly"),
-                "scale_10k": ("gru_scan", "rk4_poly"),
+                "fleet_sharded": REFIT,
+                "fleet_parity": REFIT,
+                "scale_1k": REFIT,
+                "scale_10k": REFIT,
                 "federated_10k": (), "federated_tcp": (),
                 "federated_kill": (),
                 # LM training: every RWKV-6 and Mamba-2 layer's forward,
@@ -586,7 +594,7 @@ def check_kernels(dev):
     from repro_torch.kernels.rk4.ops import rk4_poly_solve
     from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
     gen = torch.Generator().manual_seed(1)
-    worst = {"gru_scan": 0.0, "rk4_poly": 0.0}
+    worst = {"gru_scan": 0.0, "rk4_poly": 0.0, "rk4_adjoint": 0.0}
     gru_cases = [("refit F=8 B=8", (8, 8), 8, 24, 32),
                  ("ragged F=8 B=61", (8, 61), 8, 24, 32),
                  ("shared weights [2, 61]", (2, 61), None, 24, 32),
@@ -623,6 +631,7 @@ def check_kernels(dev):
         worst["gru_scan"] = max(worst["gru_scan"], err)
         print(f"  gru_scan   {label:24s} max|err| {err:.3e}")
     rk4_cases = [("refit B=64 T=24", (64,), 24, 1),
+                 ("fleet refit B=32 T=16", (32,), 16, 1),
                  ("guard B=64 T=32", (64,), 32, 1),
                  ("promote B=8 T=32", (8,), 32, 1),
                  ("predict B=1 T=50", (1,), 50, 1),
@@ -636,45 +645,70 @@ def check_kernels(dev):
         Bf = int(np.prod(lead))
         flat = lambda th, y, u: (th.reshape(Bf, 3, lib.size),
                                  y.reshape(Bf, 3), u.reshape(Bf, T, m))
+        before = _rk4_backwards()
         outs, grads = _grads(
             lambda *a: rk4_poly_solve(*a, dt=0.01, library=lib), args)
+        _adjoint_route(f"rk4 {label}", before)
         ref_outs, ref_grads = _grads(
             lambda *a: rk4_poly_solve_ref(*flat(*a), 0.01, idx).reshape(
                 lead + (T + 1, 3)), args)
         torch.cuda.synchronize()
         err = _close(f"rk4 {label}", outs, ref_outs, RK4_TOL)
-        _close(f"rk4 {label} grads", grads, ref_grads, GRAD_TOL)
+        g_err = _close(f"rk4 {label} grads", grads, ref_grads, GRAD_TOL)
         worst["rk4_poly"] = max(worst["rk4_poly"], err)
-        print(f"  rk4_poly   {label:24s} max|err| {err:.3e}")
-    worst["rk4_poly"] = max(worst["rk4_poly"], check_rk4_systems(dev),
-                            check_rk4_wide(dev))
+        worst["rk4_adjoint"] = max(worst["rk4_adjoint"], g_err)
+        print(f"  rk4_poly   {label:24s} max|err| {err:.3e}, grads "
+              f"{g_err:.3e} (adjoint)")
+    err, g_err = check_rk4_systems(dev)
+    worst["rk4_poly"] = max(worst["rk4_poly"], err, check_rk4_wide(dev))
+    worst["rk4_adjoint"] = max(worst["rk4_adjoint"], g_err)
     worst["linear_scan"] = check_scan(dev)
     return worst
 
 
-def check_rk4_systems(dev) -> float:
+def _rk4_backwards():
+    from repro_torch.kernels.rk4.ops import rk4_poly_solve
+    return rk4_poly_solve.adjoint_launches, rk4_poly_solve.replays
+
+
+def _adjoint_route(name, before):
+    """One warp-path solve's backward launched the adjoint kernel once and
+    replayed nothing."""
+    adjoint, replays = (a - b for a, b in zip(_rk4_backwards(), before))
+    if (adjoint, replays) != (1, 0):
+        raise RuntimeError(f"{name}: the backward launched the adjoint "
+                           f"{adjoint} times and replayed {replays} times; "
+                           "expected once and none")
+
+
+def check_rk4_systems(dev) -> tuple[float, float]:
     """RK4 at every registered system's (n, m, order), m = 0 included (61
-    instances, 24 steps, forward and gradients), and at F-8's simulation
+    instances, 24 steps, forward and gradients, the backward through the
+    adjoint kernel), and at F-8's simulation
     length: 4 traces of 600 samples x 10 substeps = 6,000 steps, forward
     only, each trace within 1e-4 of its envelope (the bound rounding over
     6,000 steps keeps; a trace the plain version lets diverge must diverge
-    on the card too)."""
+    on the card too).  Returns the worst absolute error of the forwards
+    and of the gradients."""
     from repro_torch.kernels.rk4.ops import rk4_poly_solve
     from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
     from repro_torch.systems.simulate import register_systems
     gen = torch.Generator().manual_seed(4)
-    worst = 0.0
+    worst = g_worst = 0.0
     for name in sorted(register_systems()):
         lib, dt, args = _system_rk4_inputs(name, gen, dev, 61, 24)
         idx = lib.indices_on(dev)
+        label = f"{name} n={lib.n} m={lib.m} O={lib.order}"
+        before = _rk4_backwards()
         outs, grads = _grads(
             lambda *a: rk4_poly_solve(*a, dt=dt, library=lib), args)
+        _adjoint_route(f"rk4 {label}", before)
         ref_outs, ref_grads = _grads(
             lambda *a: rk4_poly_solve_ref(*a, dt, idx), args)
         torch.cuda.synchronize()
-        label = f"{name} n={lib.n} m={lib.m} O={lib.order}"
         err = _close(f"rk4 {label}", outs, ref_outs, RK4_TOL)
-        _close(f"rk4 {label} grads", grads, ref_grads, GRAD_TOL)
+        g_worst = max(g_worst, _close(f"rk4 {label} grads", grads,
+                                      ref_grads, GRAD_TOL))
         worst = max(worst, err)
         print(f"  rk4_poly   {label:40s} max|err| {err:.3e}")
     lib, dt, args = _system_rk4_inputs("f8_crusader", gen, dev, 4, 600,
@@ -686,7 +720,7 @@ def check_rk4_systems(dev) -> float:
     err = _close_traces("rk4 f8 simulation T=6000", ys, ref, 1e-4)
     print(f"  rk4_poly   {'f8 simulation B=4 T=6000':40s} max|err| "
           f"{err:.3e}")
-    return max(worst, err)
+    return max(worst, err), g_worst
 
 
 def _f8_stack(k: int):
@@ -908,6 +942,11 @@ RK4_SIM_SHAPES = {
     "f8 simulate B=4 T=6000": ("f8_crusader", 4),
     "lorenz simulate B=4 T=8000 m=0": ("lorenz", 4),
 }
+# the RK4 solve's backward in the refit: (B, T) of F-8 64's decode (8 slots
+# x 8 windows of 24 steps) and of the 10,000-twin fleet's pools (8 slots x
+# 4 windows of 16 steps)
+RK4_ADJOINT_SHAPES = {"refit B=64 T=24": (64, 24),
+                      "fleet refit B=32 T=16": (32, 16)}
 SCAN_SHAPES = {            # (B, H, T): RWKV-6 prefills of one or 4 prompts
     "T=256": (1, 40, 256), "T=659": (1, 40, 659), "T=1024": (1, 40, 1024),
     "T=2048": (1, 40, 2048), "T=4096": (1, 40, 4096),
@@ -965,8 +1004,8 @@ def kernel_lines(dev, paths, worst):
     gen = torch.Generator().manual_seed(2)
     common = lambda name: dict(
         name=name, route="cuda", library_ms=None,
-        launches=sum(c[name] for c in paths.values()),
-        launches_by_path={p: c[name] for p, c in paths.items()},
+        launches=sum(c.get(name, 0) for c in paths.values()),
+        launches_by_path={p: c[name] for p, c in paths.items() if name in c},
         max_abs_err=worst[name])
     lines = []
     with torch.no_grad():
@@ -1022,6 +1061,8 @@ def kernel_lines(dev, paths, worst):
             replaces="src/repro/kernels/rk4/rk4.py:38"), timings,
             "refit B=64 T=24"))
 
+        lines.append(rk4_adjoint_line(dev, gen, common))
+
         timings, pairwise = {}, {}
         K = V = C = 64
         for label, (B, H, T) in SCAN_SHAPES.items():
@@ -1062,6 +1103,44 @@ def kernel_lines(dev, paths, worst):
     return lines
 
 
+def rk4_adjoint_line(dev, gen, common):
+    """The adjoint kernel (the RK4 solve's backward on the warp path) at the
+    refit's shapes, theta and us taking gradients as in the refit; its plain
+    version is the backward it replaced, the plain forward replayed under
+    autograd.  Both also eager (`eager_ms`, `plain_eager_ms`): the replay's
+    cost is its launches.  Its launches are the paths' backwards, its
+    max_abs_err the worst gradient of check_kernels' RK4 cases (these two
+    shapes among them)."""
+    from repro_torch.kernels.rk4.ops import rk4_adjoint, rk4_poly_solve
+    from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
+    from repro_torch.kernels.work import rk4_adjoint_flops
+    need = (True, False, True)
+    timings = {}
+    for label, (B, T) in RK4_ADJOINT_SHAPES.items():
+        lib, (theta, y0, us) = _rk4_inputs(gen, dev, (B,), T, 1)
+        idx = lib.indices_on(dev)
+        ys = rk4_poly_solve(theta, y0, us, dt=0.01, library=lib)
+        g_ys = torch.randn(ys.shape, generator=gen).to(dev)
+        g_theta, _, g_us = rk4_adjoint(theta, us, idx, ys, g_ys, 0.01, need)
+        nbytes = sum(t.nbytes for t in (theta, us, idx, ys, g_ys, g_theta,
+                                        g_us))
+
+        def replay(a=(theta, y0, us), ix=idx, g=g_ys):
+            with torch.enable_grad():
+                th, y, u = (t.detach().requires_grad_(w)
+                            for t, w in zip(a, need))
+                return torch.autograd.grad(
+                    rk4_poly_solve_ref(th, y, u, 0.01, ix), (th, u), g)
+
+        timings[label] = _timed(
+            lambda a=(theta, us, idx, ys, g_ys): rk4_adjoint(*a, 0.01, need),
+            replay, rk4_adjoint_flops(B, T, lib.n, lib.size, idx.shape[1]),
+            nbytes, eager=True)
+    return _by_shape(dict(
+        **common("rk4_adjoint"), source="src/repro_torch/csrc/rk4_poly.cu",
+        replaces=None), timings, "refit B=64 T=24")
+
+
 def scan_launches(fn, calls: int = 10):
     """Device time of each of the scan's three launches (chunk states, the
     scan across chunks, chunk outputs) under torch.profiler."""
@@ -1088,19 +1167,23 @@ def counted(paths: dict, path: str, fn, quiet: bool = False):
     """Drive one serving path with every kernel's launch count set to 0 just
     before it, add the counts just after to the path's total (a path driven
     call by call, like the LM engine's, sums its calls), and fail if a
-    kernel the path runs was never launched."""
+    kernel the path runs was never launched or one it does not run was
+    (the RK4 adjoint and the RK4 backward's replay counted as kernels)."""
     from repro_torch.kernels.gru.ops import gru_scan
     from repro_torch.kernels.linear_scan.ops import linear_scan
     from repro_torch.kernels.rk4.ops import rk4_poly_solve
-    kernels = {"gru_scan": gru_scan, "rk4_poly": rk4_poly_solve,
-               "linear_scan": linear_scan}
-    for k in kernels.values():
-        k.launches = 0
+    kernels = {"gru_scan": (gru_scan, "launches"),
+               "rk4_poly": (rk4_poly_solve, "launches"),
+               "rk4_adjoint": (rk4_poly_solve, "adjoint_launches"),
+               "rk4_replay": (rk4_poly_solve, "replays"),
+               "linear_scan": (linear_scan, "launches")}
+    for k, count in kernels.values():
+        setattr(k, count, 0)
     out = fn()
     torch.cuda.synchronize()
     total = paths.setdefault(path, dict.fromkeys(kernels, 0))
-    for name, k in kernels.items():
-        total[name] += k.launches
+    for name, (k, count) in kernels.items():
+        total[name] += getattr(k, count)
     if not quiet:
         print(f"kernel launches on the {path} path: {total}")
     for name in PATH_KERNELS[path]:
@@ -1192,7 +1275,8 @@ def _run_summary(name, srv, paths, path, smi, ck=None):
              f"({lat['ticks']} ticks)" if lat["ticks"] else "no ticks")
     counts = paths[path]
     line = (f"  {name}: {ticks}; launches gru_scan {counts['gru_scan']}, "
-            f"rk4_poly {counts['rk4_poly']}")
+            f"rk4_poly {counts['rk4_poly']}, rk4_adjoint "
+            f"{counts['rk4_adjoint']}")
     if ck is not None:
         snap, write = ck._m_snapshot, ck._m_write
         line += (f"; twin_ckpt_snapshot_seconds mean "
@@ -2679,7 +2763,9 @@ def _fleet_summary(name, srv, paths, path, smi, workers=None):
           f"refreshes/s; stages " + ", ".join(
               f"{k} {v:.2f}" for k, v in st.items())
           + f"; launches gru_scan {counts['gru_scan']}, rk4_poly "
-          f"{counts['rk4_poly']}{' (workers)' if workers else ''} [{smi}]")
+          f"{counts['rk4_poly']}" + (" (workers)" if workers else
+                                     f", rk4_adjoint {counts['rk4_adjoint']}")
+          + f" [{smi}]")
     return lat, st
 
 

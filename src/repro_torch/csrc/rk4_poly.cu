@@ -70,6 +70,47 @@
 // the warp path's, and at k = 11 every right-hand side re-reads Theta from
 // L2, kAcc loads in flight a lane.  A slow path that is right; its times
 // are in PERF.md.
+//
+// The adjoint (rk4_adjoint_kernel, the backward of the warp path).  It
+// replaces no TPU kernel: the JAX package's custom_vjp replays the plain
+// version under autodiff, as the port's backward did.  On the card that
+// replay was about 3,500 small launches a solve (cat, gather, products,
+// einsum and their reverses, each dispatched by the host), two thirds of
+// a refit step's host time.  This kernel is the exact discrete adjoint of
+// the forward's steps, fp32, in one launch.  Per step t = T-1 .. 0, with
+// a the cotangent of y_{t+1}:
+//   * the stage states Xaug(z1..z4) are recomputed from the saved ys[t] by
+//     the forward's own poly_rhs, so they are the forward's;
+//   * the stage cotangents are dt/6 a, dt/3 a, dt/3 a, dt/6 a, and the
+//     products vjp(f) run at z4, z3, z2, z1 in turn, feeding dt gz4 into
+//     k3's cotangent, dt/2 gz3 into k2's and dt/2 gz2 into k1's;
+//   * each product adds lam_i Phi_l to g_theta[i, l], and with c_l =
+//     sum_i Theta[i, l] lam_i adds c_l prod_{o' != o} Xaug[idx[l, o']] to
+//     the cotangent of Xaug[idx[l, o]]: its states go into a, its inputs
+//     into g_us[t] (zero-order hold);
+//   * a += g_ys[t]; after step 0, a is g_y0.
+// What bounds it: the same chain as the forward's, longer: 3 right-hand
+// sides and 4 products a step, each a round of shuffles and a 5-level
+// reduction (1.75x the forward's chain by count, 4.4x its time in PERF.md:
+// a product's scatter into channels is longer than a sum); the work
+// (kernels/work.py, rk4_adjoint_flops) is again far below the card's
+// rates.  Design: the
+// forward's warp an instance and its per-lane terms.  Lane j owns the
+// terms l = j, j+32 (their Theta and their g_theta accumulators sit in
+// registers; g_theta is written once at the end, no atomics); the factors
+// come by __shfl_sync; the cotangent of each state and input channel is a
+// butterfly __shfl_xor_sync reduction, so every lane holds all of them
+// and the next stage's cotangent needs no broadcast, and the sums' order
+// is fixed: the gradient is the same from run to run.  Instantiated for
+// the forward's (OC, GR) and for n = 1..4 with n + m <= 7 exactly, else
+// with warp-uniform guards up to the warp path's limits; the small
+// instantiations reduce all kSmallChannels channels unguarded, since a
+// guard between the shuffles keeps them from pipelining (0.155 ms with
+// it at the refit shape).  The wide path's backward replays the plain
+// version (kernels/rk4/ops.py).
+//
+// Its times at the refit's shapes, beside those of the replay it replaced,
+// are in PERF.md's kernel table (row 2b).
 
 #include <cuda_runtime.h>
 
@@ -240,6 +281,283 @@ int launch_groups(const float* theta, const float* y0, const float* us,
 }
 
 // ------------------------------------------------------------------------
+// The adjoint of the warp path (see "The adjoint" at the top).
+constexpr int kSmallChannels = 7;   // n + m <= 7: registered systems' reach
+
+struct AdjointArgs {
+  const float* theta;     // [B, n, L]
+  const float* us;        // [B, T, m]; read only by input lanes
+  const int* term_idx;    // [L, O]
+  const float* ys;        // [B, T+1, n]: the forward's output
+  const float* g_ys;      // [B, T+1, n]
+  float* g_theta;         // [B, n, L] or null
+  float* g_y0;            // [B, n] or null
+  float* g_us;            // [B, T, m] or null
+  int B, n, m, L, O, T;
+  float half_dt, dt, dt_sixth;
+};
+
+// Add v to this lane's share of the cotangent of Xaug[j]; channel j >= 1
+// sits in ch[j - 1], and the constant (j == 0) takes no gradient.
+template <int NA>
+__device__ __forceinline__ void to_channel(float (&ch)[NA], int j, float v) {
+#pragma unroll
+  for (int k = 0; k < NA; ++k) ch[k] += j == k + 1 ? v : 0.0f;
+}
+
+// The product of the factors o1 <= o < o2 of term l, skipping factor
+// `skip`, read from term_idx (orders past the registers, and term groups
+// past them).
+__device__ __forceinline__ float factors(float x, const int* ix, bool ok,
+                                         int o1, int o2, int skip) {
+  float p = 1.0f;
+  for (int o = o1; o < o2; ++o)
+    if (o != skip) p *= __shfl_sync(kFull, x, ok ? __ldg(ix + o) : 0);
+  return p;
+}
+
+// One vector-Jacobian product of the right-hand side at Xaug (this lane's
+// entry x) with cotangent lam (all n on every lane): adds lam_i Phi_l to
+// the lane's own terms' gradients (gth in registers, gth_mem past them),
+// and leaves in ch, on every lane, the cotangent of Xaug's channels 1..n+m
+// summed over all terms:  sum_l c_l dPhi_l/dXaug_j,  c_l = sum_i
+// Theta[i, l] lam_i.
+template <int OC, int GR, int NP, int NA>
+__device__ __forceinline__ void poly_vjp(
+    float x, const float (&lam)[NP], const Terms<OC, GR, NP>& r,
+    float (&gth)[GR][NP], float* __restrict__ gth_mem,
+    const float* __restrict__ th, const int* __restrict__ term_idx, int lane,
+    int n, int na, int L, int O, int G, float (&ch)[NA]) {
+#pragma unroll
+  for (int k = 0; k < NA; ++k) ch[k] = 0.0f;
+#pragma unroll
+  for (int g = 0; g < GR; ++g) {
+    const int l = lane + 32 * g;
+    const bool ok = l < L;
+    const int* ix = term_idx + (size_t)(ok ? l : 0) * O;
+    float f[OC];
+#pragma unroll
+    for (int o = 0; o < OC; ++o) f[o] = __shfl_sync(kFull, x, r.idx[g][o]);
+    float phi = f[0];
+#pragma unroll
+    for (int o = 1; o < OC; ++o) phi *= f[o];
+    const float ext = O > OC ? factors(x, ix, ok, OC, O, -1) : 1.0f;
+    float c = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      if (live<NP>(i, n)) {
+        gth[g][i] = fmaf(lam[i], phi * ext, gth[g][i]);
+        c = fmaf(r.coef[g][i], lam[i], c);
+      }
+#pragma unroll
+    for (int o = 0; o < OC; ++o) {
+      float rest = ext;
+#pragma unroll
+      for (int p = 0; p < OC; ++p)
+        if (p != o) rest *= f[p];
+      to_channel(ch, r.idx[g][o], c * rest);
+    }
+    for (int o = OC; o < O; ++o)
+      to_channel(ch, ok ? __ldg(ix + o) : 0,
+                 c * phi * factors(x, ix, ok, OC, O, o));
+  }
+  for (int g = GR; g < G; ++g) {             // groups past the registers
+    const int l = lane + 32 * g;
+    const bool ok = l < L;
+    const int* ix = term_idx + (size_t)(ok ? l : 0) * O;
+    const float phi = factors(x, ix, ok, 0, O, -1);
+    float c = 0.0f;
+    if (ok) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        if (live<NP>(i, n)) {
+          if (gth_mem) gth_mem[(size_t)i * L + l] += lam[i] * phi;
+          c = fmaf(__ldg(th + (size_t)i * L + l), lam[i], c);
+        }
+    }
+    for (int o = 0; o < O; ++o)
+      to_channel(ch, ok ? __ldg(ix + o) : 0, c * factors(x, ix, ok, 0, O, o));
+  }
+  // the small instantiations reduce every channel, unused ones too: with
+  // no branch between them the shuffles pipeline
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < NA; ++k)
+      if (NA == kSmallChannels || k < na)
+        ch[k] += __shfl_xor_sync(kFull, ch[k], off);
+  }
+}
+
+// After a stage's product: the state channels join y's cotangent a, and
+// an input lane takes its own channel into gu (other lanes' gu is unused).
+template <int NP, int NA>
+__device__ __forceinline__ void take(const float (&ch)[NA], float (&a)[NP],
+                                     float& gu, int lane, int n) {
+#pragma unroll
+  for (int k = 0; k < NA; ++k) gu += k == lane - 1 ? ch[k] : 0.0f;
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+    if (live<NP>(i, n)) a[i] += ch[i];
+}
+
+// One warp an instance, as the forward.  The cotangent a of the state,
+// the stage cotangents and the channel sums are held on every lane, so no
+// lane waits on a broadcast; the stage states are recomputed by the
+// forward's own code from the saved ys.
+template <int OC, int GR, int NP, int NA>
+__global__ void __launch_bounds__(kThreads, 1)
+rk4_adjoint_kernel(const AdjointArgs p) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= p.B) return;                      // whole warps: no block sync
+  const int n = p.n, m = p.m, L = p.L, O = p.O, T = p.T;
+  const int G = (L + 31) / 32;
+  const int* __restrict__ term_idx = p.term_idx;
+  const float* __restrict__ th = p.theta + (size_t)b * n * L;
+
+  Terms<OC, GR, NP> r;
+  float gth[GR][NP];
+#pragma unroll
+  for (int g = 0; g < GR; ++g) {
+    const int l = lane + 32 * g;
+    const bool ok = l < L;
+#pragma unroll
+    for (int o = 0; o < OC; ++o)
+      r.idx[g][o] = (ok && o < O) ? __ldg(term_idx + (size_t)l * O + o) : 0;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      r.coef[g][i] =
+          (ok && live<NP>(i, n)) ? __ldg(th + (size_t)i * L + l) : 0.0f;
+      gth[g][i] = 0.0f;
+    }
+  }
+  // past the registers each (i, l) is one lane's: accumulate in place
+  float* gth_mem = p.g_theta ? p.g_theta + (size_t)b * n * L : nullptr;
+  if (gth_mem)
+    for (int l = lane + 32 * GR; l < L; l += 32)
+      for (int i = 0; i < n; ++i) gth_mem[(size_t)i * L + l] = 0.0f;
+
+  const bool is_state = lane >= 1 && lane <= n;
+  const bool is_input = lane > n && lane <= n + m;
+  const int si = lane - 1, ui = lane - 1 - n;
+  const float* yb = p.ys + (size_t)b * (T + 1) * n;
+  const float* gb = p.g_ys + (size_t)b * (T + 1) * n;
+  const float* ub = p.us + (size_t)b * T * m;   // read only by input lanes
+
+  float a[NP];                               // cotangent of y_{t+1}
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+    a[i] = live<NP>(i, n) ? __ldg(gb + (size_t)T * n + i) : 0.0f;
+  // step t's entries of Xaug, read a step ahead of the chain
+  float y_next = (is_state && T > 0) ? __ldg(yb + (size_t)(T - 1) * n + si)
+                                     : 0.0f;
+  float u_next = (is_input && T > 0) ? __ldg(ub + (size_t)(T - 1) * m + ui)
+                                     : 0.0f;
+  for (int t = T - 1; t >= 0; --t) {
+    const float y = y_next, u = u_next;
+    if (t > 0) {
+      if (is_state) y_next = __ldg(yb + (size_t)(t - 1) * n + si);
+      if (is_input) u_next = __ldg(ub + (size_t)(t - 1) * m + ui);
+    }
+    float g_t[NP];                           // g_ys[t], added last
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      g_t[i] = live<NP>(i, n) ? __ldg(gb + (size_t)t * n + i) : 0.0f;
+
+    // the forward's stages, by the forward's code
+    const float fixed = lane == 0 ? 1.0f : (is_input ? u : 0.0f);
+    const float x1 = is_state ? y : fixed;
+    const float k1 =
+        poly_rhs<OC, GR, NP>(x1, r, th, term_idx, lane, n, L, O, G);
+    const float x2 = is_state ? y + p.half_dt * k1 : fixed;
+    const float k2 =
+        poly_rhs<OC, GR, NP>(x2, r, th, term_idx, lane, n, L, O, G);
+    const float x3 = is_state ? y + p.half_dt * k2 : fixed;
+    const float k3 =
+        poly_rhs<OC, GR, NP>(x3, r, th, term_idx, lane, n, L, O, G);
+    const float x4 = is_state ? y + p.dt * k3 : fixed;
+
+    // y_{t+1} = y + dt/6 (k1 + 2 k2 + 2 k3 + k4): k4's cotangent is s,
+    // k3's 2 s + dt gz4, k2's 2 s + dt/2 gz3, k1's s + dt/2 gz2, and y's
+    // a + gz4 + gz3 + gz2 + gz1 + g_ys[t]
+    float s[NP], lam[NP], ch[NA];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) s[i] = p.dt_sixth * a[i];
+    float gu = 0.0f;                         // this input lane's channel
+    poly_vjp<OC, GR, NP, NA>(x4, s, r, gth, gth_mem, th, term_idx, lane, n,
+                             n + m, L, O, G, ch);
+    take(ch, a, gu, lane, n);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) lam[i] = fmaf(p.dt, ch[i], 2.0f * s[i]);
+    poly_vjp<OC, GR, NP, NA>(x3, lam, r, gth, gth_mem, th, term_idx, lane, n,
+                             n + m, L, O, G, ch);
+    take(ch, a, gu, lane, n);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) lam[i] = fmaf(p.half_dt, ch[i], 2.0f * s[i]);
+    poly_vjp<OC, GR, NP, NA>(x2, lam, r, gth, gth_mem, th, term_idx, lane, n,
+                             n + m, L, O, G, ch);
+    take(ch, a, gu, lane, n);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) lam[i] = fmaf(p.half_dt, ch[i], s[i]);
+    poly_vjp<OC, GR, NP, NA>(x1, lam, r, gth, gth_mem, th, term_idx, lane, n,
+                             n + m, L, O, G, ch);
+    take(ch, a, gu, lane, n);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) a[i] += g_t[i];
+    if (p.g_us && is_input)
+      p.g_us[(size_t)b * T * m + (size_t)t * m + ui] = gu;
+  }
+
+  if (p.g_y0 && is_state) {
+    float v = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) v = i == si ? a[i] : v;
+    p.g_y0[(size_t)b * n + si] = v;
+  }
+  if (gth_mem) {
+#pragma unroll
+    for (int g = 0; g < GR; ++g) {
+      const int l = lane + 32 * g;
+      if (l < L) {
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+          if (live<NP>(i, n)) gth_mem[(size_t)i * L + l] = gth[g][i];
+      }
+    }
+  }
+}
+
+template <int OC, int GR, int NP, int NA>
+int launch_adjoint(const AdjointArgs& p, cudaStream_t stream) {
+  rk4_adjoint_kernel<OC, GR, NP, NA>
+      <<<(p.B + kWarps - 1) / kWarps, kThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// n and the channels exact up to n = 4 and n + m = kSmallChannels (every
+// registered system); past them, warp-uniform guards up to the warp
+// path's limits.
+template <int OC, int GR>
+int adjoint_n(const AdjointArgs& p, cudaStream_t stream) {
+  if (p.n + p.m <= kSmallChannels) {
+    switch (p.n) {
+      case 1: return launch_adjoint<OC, GR, 1, kSmallChannels>(p, stream);
+      case 2: return launch_adjoint<OC, GR, 2, kSmallChannels>(p, stream);
+      case 3: return launch_adjoint<OC, GR, 3, kSmallChannels>(p, stream);
+      case 4: return launch_adjoint<OC, GR, 4, kSmallChannels>(p, stream);
+      default: break;
+    }
+  }
+  return launch_adjoint<OC, GR, RK4_MAX_N, RK4_MAX_AUG - 1>(p, stream);
+}
+
+template <int OC>
+int adjoint_groups(const AdjointArgs& p, cudaStream_t stream) {
+  return p.L <= 32 ? adjoint_n<OC, 1>(p, stream) : adjoint_n<OC, 2>(p, stream);
+}
+
+// ------------------------------------------------------------------------
 // The wide path: one block of kWideThreads per instance.
 constexpr int kWideWarps = 16;
 constexpr int kWideThreads = 32 * kWideWarps;
@@ -392,4 +710,24 @@ extern "C" int rk4_poly_launch(const float* theta, const float* y0,
                                    T, dt, st)
                 : launch_groups<4>(theta, y0, us, term_idx, ys, B, n, m, L, O,
                                    T, dt, st);
+}
+
+// The adjoint of rk4_poly_launch on the warp path's shapes (the wide ones
+// return cudaErrorInvalidValue: their backward is not a kernel).  Each
+// gradient pointer may be null, and is then not written; returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int rk4_adjoint_launch(const float* theta, const float* us,
+                                  const int* term_idx, const float* ys,
+                                  const float* g_ys, float* g_theta,
+                                  float* g_y0, float* g_us, int B, int n,
+                                  int m, int L, int O, int T, double dt,
+                                  void* stream) {
+  if (B < 1 || n < 1 || m < 0 || L < 1 || O < 1 || T < 0 ||
+      n > RK4_MAX_N || 1 + n + m > RK4_MAX_AUG)
+    return (int)cudaErrorInvalidValue;
+  const AdjointArgs p{theta, us, term_idx, ys, g_ys, g_theta, g_y0, g_us,
+                      B, n, m, L, O, T, (float)(0.5 * dt), (float)dt,
+                      (float)(dt / 6.0)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return O <= 3 ? adjoint_groups<3>(p, st) : adjoint_groups<4>(p, st);
 }

@@ -22,9 +22,10 @@ failure is never caught and routed to the plain version.
 
 A META tensor (the dry-run's trace, launch/opcount.py) takes the card's
 route through the wrapper's `autograd.Function`, so its saved tensors and
-replayed backward are the card's; in place of the launch the forward only
-shapes its outputs and reports the kernel's work (kernels/work.py) to the
-sinks registered with `meta_sink`.  It is not counted as a launch.
+backward are the card's; in place of each launch (a forward, or the RK4
+adjoint in a backward) the wrapper only shapes its outputs and reports the
+kernel's work (kernels/work.py) to the sinks registered with `meta_sink`.
+It is not counted as a launch.
 """
 from __future__ import annotations
 
@@ -145,6 +146,8 @@ def _declare(lib) -> None:
     lib.gru_scan_max_hidden.restype = i32
     lib.rk4_poly_launch.argtypes = [vp] * 5 + [i32] * 6 + [f64, vp]
     lib.rk4_poly_launch.restype = i32
+    lib.rk4_adjoint_launch.argtypes = [vp] * 8 + [i32] * 6 + [f64, vp]
+    lib.rk4_adjoint_launch.restype = i32
     lib.rk4_poly_max_n.argtypes = []
     lib.rk4_poly_max_n.restype = i32
     lib.rk4_poly_max_aug.argtypes = []

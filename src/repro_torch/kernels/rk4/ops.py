@@ -1,16 +1,21 @@
 """Public RK4 wrapper: shape checks, leading-axis folding, dispatch to the
-CUDA kernel (csrc/rk4_poly.cu) or, for CPU tensors, the plain version.
+CUDA kernels (csrc/rk4_poly.cu) or, for CPU tensors, the plain version.
 
 Extra leading axes on theta/y0/us (the fleet axis of the refit decode, the
 [ensemble, K] grid of a scenario query) fold into the batch axis: the
 coefficients are per-instance operands, so folding is exact.  On a CUDA
-tensor the forward launches the kernel (`_RK4Kernel`) and the backward
-replays the plain version under autograd, as the JAX `custom_vjp` does.
-The kernel masks its own ragged batch edge and reads no input channel when
-m == 0, so there is neither padding nor a dummy channel here.  Every (n, m)
-runs on the card: a warp an instance up to n = 16 and 1+n+m = 32, a block
-an instance past that (csrc/rk4_poly.cu's wide path).  Meta tensors
-take the CUDA route with a forward that only shapes its outputs
+tensor the forward launches the kernel (`_RK4Kernel`), and the backward
+launches the adjoint kernel (`rk4_adjoint`: the exact discrete adjoint of
+the forward's steps, one launch) on the warp path's shapes, n <= MAX_N and
+1+n+m <= MAX_AUG: every registered system.  Past them (the wide path:
+F8Crusader(n_aircraft >= 6)) the backward replays the plain version under
+autograd, as the JAX `custom_vjp` does.  The choice is `warp_path(n, m)`,
+the shape test of the kernels' own launcher.  The kernel masks its own
+ragged batch edge and reads no input channel when m == 0, so there is
+neither padding nor a dummy channel here.  Every (n, m) runs on the card:
+a warp an instance up to n = 16 and 1+n+m = 32, a block an instance past
+that (csrc/rk4_poly.cu's wide path).  Meta tensors take the CUDA route
+with a forward and a backward that only shape their outputs
 (kernels/backend.py).
 """
 from __future__ import annotations
@@ -22,9 +27,21 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
-from repro_torch.kernels.work import rk4_flops
+from repro_torch.kernels.work import rk4_adjoint_flops, rk4_flops
 
-__all__ = ["rk4_poly_solve", "rk4_poly_kernel"]
+__all__ = ["rk4_poly_solve", "rk4_poly_kernel", "rk4_adjoint", "warp_path",
+           "MAX_N", "MAX_AUG"]
+
+# The warp path's limits, csrc/rk4_poly.cu's RK4_MAX_N and RK4_MAX_AUG
+# (`lib.rk4_poly_max_n()`, `lib.rk4_poly_max_aug()`)
+MAX_N = 16
+MAX_AUG = 32
+
+
+def warp_path(n: int, m: int) -> bool:
+    """Does an (n states, m inputs) solve take the warp path, and so the
+    adjoint kernel in its backward?  The launcher's own test."""
+    return n <= MAX_N and 1 + n + m <= MAX_AUG
 
 
 def rk4_poly_kernel(theta, y0, us, term_idx, dt: float):
@@ -69,24 +86,76 @@ def rk4_poly_kernel(theta, y0, us, term_idx, dt: float):
     return ys
 
 
+def rk4_adjoint(theta, us, term_idx, ys, g_ys, dt: float, need):
+    """Launch the adjoint kernel (the backward of `rk4_poly_kernel` on the
+    warp path).  theta [B, n, L], us [B, T, m], term_idx [L, O] int32, the
+    forward's ys [B, T+1, n] and the cotangent g_ys [B, T+1, n], all
+    contiguous on one CUDA device -> (g_theta, g_y0, g_us), each None where
+    `need` (three bools) says so.  On meta tensors nothing launches: the
+    gradients are shaped and the work reported (backend.meta_kernel)."""
+    B, n, L = theta.shape
+    T, m = us.shape[1], us.shape[2]
+    O = term_idx.shape[1]
+    if not warp_path(n, m):
+        raise ValueError(f"rk4 adjoint: n={n}, m={m} is past the warp "
+                         f"path (n <= {MAX_N}, 1+n+m <= {MAX_AUG})")
+    dev = theta.device
+    for name, t in (("ys", ys), ("g_ys", g_ys)):
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or t.shape != (B, T + 1, n)):
+            raise ValueError(f"rk4 adjoint: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected a "
+                             f"contiguous float32 {(B, T + 1, n)} on {dev}")
+    g_theta, g_y0, g_us = (torch.empty(shape, dtype=torch.float32,
+                                       device=dev) if want else None
+                           for want, shape in zip(need, (theta.shape, (B, n),
+                                                         us.shape)))
+    if dev.type == "meta":
+        written = [t for t in (g_theta, g_y0, g_us) if t is not None]
+        backend.meta_kernel("rk4_adjoint",
+                            flops=rk4_adjoint_flops(B, T, n, L, O),
+                            nbytes=sum(t.nbytes for t in (theta, us, term_idx,
+                                                          ys, g_ys, *written)))
+        return g_theta, g_y0, g_us
+    lib = backend.load_library()
+    if B == 0:
+        return g_theta, g_y0, g_us
+    ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
+    err = lib.rk4_adjoint_launch(
+        theta.data_ptr(), ptr(us), term_idx.data_ptr(), ys.data_ptr(),
+        g_ys.data_ptr(), ptr(g_theta), ptr(g_y0), ptr(g_us), B, n, m, L, O,
+        T, float(dt), ctypes.c_void_p(backend.cuda_stream(dev)))
+    backend.check_cuda(lib, err, "rk4_adjoint")
+    rk4_poly_solve.adjoint_launches += 1
+    return g_theta, g_y0, g_us
+
+
 class _RK4Kernel(torch.autograd.Function):
-    """CUDA forward, plain-version backward (replayed under autograd)."""
+    """CUDA forward; the adjoint kernel's backward on the warp path, the
+    plain version replayed under autograd past it."""
 
     @staticmethod
     def forward(ctx, theta, y0, us, term_idx, dt):
-        ctx.save_for_backward(theta, y0, us, term_idx)
+        ys = rk4_poly_kernel(theta, y0, us, term_idx, dt)
+        ctx.save_for_backward(theta, y0, us, term_idx, ys)
         ctx.dt = dt
-        return rk4_poly_kernel(theta, y0, us, term_idx, dt)
+        return ys
 
     @staticmethod
     def backward(ctx, g_ys):
-        theta, y0, us, term_idx = ctx.saved_tensors
+        theta, y0, us, term_idx, ys = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
+        if not any(need):
+            return (None,) * 5
+        if warp_path(theta.shape[1], us.shape[2]):
+            grads = rk4_adjoint(theta, us, term_idx, ys, g_ys.contiguous(),
+                                ctx.dt, need)
+            return (*grads, None, None)
+        if theta.device.type != "meta":
+            rk4_poly_solve.replays += 1
         inputs = [t.detach().requires_grad_(n)
                   for t, n in zip((theta, y0, us), need)]
         wanted = [t for t, n in zip(inputs, need) if n]
-        if not wanted:
-            return (None,) * 5
         with torch.enable_grad():
             ys = rk4_poly_solve_ref(*inputs, ctx.dt, term_idx)
             grads = iter(torch.autograd.grad(ys, wanted, g_ys,
@@ -136,3 +205,5 @@ def rk4_poly_solve(theta, y0, us, *, dt: float, library):
 
 
 rk4_poly_solve.launches = 0   # kernel launches (counted where the kernel starts)
+rk4_poly_solve.adjoint_launches = 0   # adjoint kernel launches (backwards)
+rk4_poly_solve.replays = 0    # card backwards that replayed the plain version

@@ -12,8 +12,8 @@ from __future__ import annotations
 from repro_torch.kernels.linear_scan.ref import SUBCHUNK
 from repro_torch.launch.mesh import HW
 
-__all__ = ["gru_flops", "rk4_flops", "scan_work", "scan_work_pairwise",
-           "bound_ms"]
+__all__ = ["gru_flops", "rk4_flops", "rk4_adjoint_flops", "scan_work",
+           "scan_work_pairwise", "bound_ms"]
 
 
 def gru_flops(F: int, B: int, T: int, H: int, D: int) -> float:
@@ -26,6 +26,17 @@ def rk4_flops(B: int, T: int, n: int, L: int, O: int) -> float:
     """Per right-hand side, (O-1) products a library term for Phi and n*L
     multiply-adds; four right-hand sides a step."""
     return 4.0 * B * T * (L * (O - 1) + 2 * n * L)
+
+
+def rk4_adjoint_flops(B: int, T: int, n: int, L: int, O: int) -> float:
+    """The adjoint's steps: three right-hand sides recomputed (as
+    `rk4_flops`) and four vector-Jacobian products.  A product, per library
+    term: (O-1) products for Phi, n multiply-adds each for g_theta and for
+    c = Theta^T lam, and per factor (O-2) products for the other factors,
+    one by c and one add into its channel's cotangent."""
+    rhs = L * (O - 1) + 2 * n * L
+    vjp = L * (O - 1 + 4 * n + O * O)
+    return B * T * (3.0 * rhs + 4.0 * vjp)
 
 
 def scan_work_pairwise(B, H, T, K, V, C, rwkv6: bool) -> float:

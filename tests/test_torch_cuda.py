@@ -19,10 +19,15 @@ in two chunks) and at 1 + n + m = 35, the GRU at H = 137, 160, 256 and
 1100 past the fast paths' 136, and at that edge (H = 136) at D = 4 and
 16.  Tolerances: forward GRU 1e-5 absolute and RK4
 rtol 1e-4 / atol 1e-5 (fp32 sums in another order than the plain version);
-gradients rtol 1e-4 / atol 1e-5 (the backward replays the plain version on
-the saved inputs).  The linear scan (RWKV-6 prefill: H=40, K=V=64, chunk
-64; plus a short, a wide, an odd, a long (B*H=160, T=4096), a ragged
-(T=2047) and a 24-row-chunk shape) is held to its plain chunked version at
+gradients rtol 1e-4 / atol 1e-5 (the GRU's backward replays the plain
+version on the saved inputs; RK4's is the adjoint kernel on the warp path,
+its sums in another order than autograd's, and the replay on the wide
+path).  The adjoint kernel also against the replay's gradients for each
+subset of inputs asked for, at T = 1, a ragged batch, the refit's [F, S_B]
+leading axes, and bit for bit from one backward to the next.  The
+linear scan (RWKV-6 prefill: H=40, K=V=64, chunk 64; plus a short, a
+wide, an odd, a long (B*H=160, T=4096), a ragged (T=2047) and a
+24-row-chunk shape) is held to its plain chunked version at
 rtol = atol = 2e-4, the JAX package's f32 tolerance: both sides upcast the
 same bf16 or f32 values and sum in f32 in another order; so is the scan in
 ssd mode on Mamba-2's operands (zamba2-7b's H=112, K=V=64 over 2048
@@ -47,7 +52,8 @@ from repro_torch.kernels.gru.ops import gru_scan
 from repro_torch.kernels.gru.ref import gru_scan_ref
 from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
-from repro_torch.kernels.rk4.ops import rk4_poly_solve
+from repro_torch.kernels import backend
+from repro_torch.kernels.rk4.ops import MAX_AUG, MAX_N, rk4_poly_solve
 from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
 from repro_torch.systems.f8_crusader import F8Crusader
 from repro_torch.systems.simulate import register_systems
@@ -73,6 +79,11 @@ def _grads(fn, args):
     outs = outs if isinstance(outs, tuple) else (outs,)
     sum(torch.mean(o * o) for o in outs).backward()
     return outs, [a.grad for a in args]
+
+
+def _rk4_backwards():
+    """(adjoint kernel launches, replayed backwards) of the RK4 solve."""
+    return rk4_poly_solve.adjoint_launches, rk4_poly_solve.replays
 
 
 @pytest.mark.cuda
@@ -117,10 +128,12 @@ def test_rk4_kernel_matches_plain_version(cuda, B, m):
               0.2 * rng.normal(size=(B, 24, m)))
     args, ref_args = _on(cuda, *arrays), _on(cuda, *arrays)
     before = rk4_poly_solve.launches
+    adjoint, replays = _rk4_backwards()
     outs, grads = _grads(
         lambda *a: rk4_poly_solve(*a, dt=0.01, library=lib), args)
     torch.cuda.synchronize()
     assert rk4_poly_solve.launches == before + 1
+    assert _rk4_backwards() == (adjoint + 1, replays)
     ref_outs, ref_grads = _grads(
         lambda *a: rk4_poly_solve_ref(*a, 0.01, lib.indices_on(cuda)),
         ref_args)
@@ -141,10 +154,10 @@ def test_rk4_kernel_matches_plain_version(cuda, B, m):
 def test_rk4_kernel_shapes(cuda, B, n, m, order, T):
     rng = np.random.default_rng(B + n + m + order)
     lib = make_library(n, m, order)
+    arrays = (0.05 * rng.normal(size=(B, n, lib.size)),
+              0.3 * rng.normal(size=(B, n)), 0.2 * rng.normal(size=(B, T, m)))
     theta, y0, us = (torch.tensor(a, dtype=torch.float32, device=cuda)
-                     for a in (0.05 * rng.normal(size=(B, n, lib.size)),
-                               0.3 * rng.normal(size=(B, n)),
-                               0.2 * rng.normal(size=(B, T, m))))
+                     for a in arrays)
     before = rk4_poly_solve.launches
     with torch.no_grad():
         ys = rk4_poly_solve(theta, y0, us, dt=0.01, library=lib)
@@ -152,6 +165,18 @@ def test_rk4_kernel_shapes(cuda, B, n, m, order, T):
     assert rk4_poly_solve.launches == before + 1
     ref = rk4_poly_solve_ref(theta, y0, us, 0.01, lib.indices_on(cuda))
     torch.testing.assert_close(ys, ref, rtol=1e-4, atol=1e-5)
+    # the backward at the same shape: the adjoint kernel, once
+    args, ref_args = _on(cuda, *arrays), _on(cuda, *arrays)
+    adjoint, replays = _rk4_backwards()
+    _, grads = _grads(
+        lambda *a: rk4_poly_solve(*a, dt=0.01, library=lib), args)
+    torch.cuda.synchronize()
+    assert _rk4_backwards() == (adjoint + 1, replays)
+    _, ref_grads = _grads(
+        lambda *a: rk4_poly_solve_ref(*a, 0.01, lib.indices_on(cuda)),
+        ref_args)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, **GRAD)
 
 
 @pytest.mark.cuda
@@ -201,10 +226,12 @@ def test_rk4_kernel_at_every_system_shape(cuda, name):
     args = [a.to(cuda).requires_grad_() for a in arrays]
     ref_args = [a.to(cuda).requires_grad_() for a in arrays]
     before = rk4_poly_solve.launches
+    adjoint, replays = _rk4_backwards()
     outs, grads = _grads(
         lambda *a: rk4_poly_solve(*a, dt=dt, library=lib), args)
     torch.cuda.synchronize()
     assert rk4_poly_solve.launches == before + 1
+    assert _rk4_backwards() == (adjoint + 1, replays)
     ref_outs, ref_grads = _grads(
         lambda *a: rk4_poly_solve_ref(*a, dt, lib.indices_on(cuda)),
         ref_args)
@@ -251,10 +278,12 @@ def test_rk4_kernel_wide_path_f8_stacks(cuda, k, T):
     args = [a.to(cuda).requires_grad_() for a in arrays]
     ref_args = [a.to(cuda).requires_grad_() for a in arrays]
     before = rk4_poly_solve.launches
+    adjoint, replays = _rk4_backwards()
     outs, grads = _grads(
         lambda *a: rk4_poly_solve(*a, dt=system.spec.dt, library=lib), args)
     torch.cuda.synchronize()
     assert rk4_poly_solve.launches == before + 1
+    assert _rk4_backwards() == (adjoint, replays + 1)
     assert outs[0].shape == (2, T + 1, 3 * k)
     assert torch.isfinite(outs[0]).all()
     ref_outs, ref_grads = _grads(
@@ -283,6 +312,57 @@ def test_rk4_kernel_wide_path_many_inputs(cuda):
     torch.testing.assert_close(outs[0], ref_outs[0], rtol=1e-4, atol=1e-5)
     for g, r in zip(grads, ref_grads):
         torch.testing.assert_close(g, r, **GRAD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["theta", "theta_us", "all", "T1", "B61",
+                                  "refit_axes", "repeat"])
+def test_rk4_adjoint_matches_replay(cuda, case):
+    """The adjoint kernel against the replay's gradients (the plain version
+    under autograd) at the refit's decode (n = 3, m = 1, order 3, B = 64,
+    T = 24), loss the per-slot mean square error to a target summed over
+    slots: only theta asked for, theta and us (the refit's), all three; T
+    = 1; a ragged warp edge, B = 61; the refit's leading axes [F, S_B] =
+    [8, 8]; and two backwards bit for bit alike (fixed shuffle sums, no
+    atomics).  Also the warp path's limits as the library reports them."""
+    lib_ = backend.load_library()
+    assert (lib_.rk4_poly_max_n(), lib_.rk4_poly_max_aug()) == (MAX_N,
+                                                               MAX_AUG)
+    need = {"theta": (True, False, False),
+            "theta_us": (True, False, True)}.get(case, (True, True, True))
+    T = 1 if case == "T1" else 24
+    lead = {"B61": (61,), "refit_axes": (8, 8)}.get(case, (64,))
+    lib = make_library(3, 1, 3)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    arrays = (0.1 * rng.normal(size=lead + (3, lib.size)),
+              0.3 * rng.normal(size=lead + (3,)),
+              0.2 * rng.normal(size=lead + (T, 1)))
+    target = torch.tensor(0.3 * rng.normal(size=lead + (T + 1, 3)),
+                          dtype=torch.float32, device=cuda)
+    idx = lib.indices_on(cuda)
+
+    def flat(th, y0, us):
+        return rk4_poly_solve_ref(th.reshape(-1, 3, lib.size),
+                                  y0.reshape(-1, 3), us.reshape(-1, T, 1),
+                                  0.01, idx).reshape(lead + (T + 1, 3))
+
+    def grads(solve):
+        args = [torch.tensor(a, dtype=torch.float32, device=cuda,
+                             requires_grad=w) for a, w in zip(arrays, need)]
+        ys = solve(*args)
+        loss = ((ys - target) ** 2).reshape(lead[0], -1).mean(1).sum()
+        return torch.autograd.grad(loss, [a for a in args if a.requires_grad])
+
+    adjoint, replays = _rk4_backwards()
+    got = grads(lambda *a: rk4_poly_solve(*a, dt=0.01, library=lib))
+    torch.cuda.synchronize()
+    assert _rk4_backwards() == (adjoint + 1, replays)
+    assert len(got) == sum(need)
+    for g, r in zip(got, grads(flat)):
+        torch.testing.assert_close(g, r, **GRAD)
+    if case == "repeat":
+        again = grads(lambda *a: rk4_poly_solve(*a, dt=0.01, library=lib))
+        assert all(torch.equal(g, h) for g, h in zip(got, again))
 
 
 @pytest.mark.cuda

@@ -2,7 +2,9 @@
 
 The same numpy inputs (seeded) go through the JAX wrapper — with its jnp
 reference and with the Pallas kernel in interpret mode — and through the
-port's wrapper on CPU tensors (the plain PyTorch version).  Tolerances:
+port's wrapper on CPU tensors (the plain PyTorch version); the RK4
+backward's route (adjoint kernel or replay) on meta tensors and by shape.
+Tolerances:
 forward 1e-5 absolute (fp32 accumulation in another order), gradients
 rtol 1e-4 / atol 1e-5 (a backward through T recurrent steps compounds the
 rounding differences).  The CUDA kernels themselves are held against the
@@ -21,8 +23,10 @@ from repro.systems.f8_crusader import F8Crusader as JaxF8
 from repro_torch.core.library import make_library
 from repro_torch.kernels.gru.ops import gru_scan
 from repro_torch.kernels.gru.ref import gru_scan_ref
-from repro_torch.kernels.rk4.ops import rk4_poly_solve
+from repro_torch.kernels.backend import meta_sink
+from repro_torch.kernels.rk4.ops import rk4_poly_solve, warp_path
 from repro_torch.kernels.rk4.ref import rk4_poly_solve_ref
+from repro_torch.kernels.work import rk4_adjoint_flops
 
 JAX_BACKENDS = {"jnp": {}, "pallas": dict(use_pallas=True, interpret=True)}
 FWD = dict(rtol=0, atol=1e-5)
@@ -212,3 +216,76 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert (gru_scan.launches, rk4_poly_solve.launches) == before
     assert torch.equal(hs, hs_r) and torch.equal(hT, hT_r)
     assert torch.equal(ys, ys_r)
+
+
+@pytest.mark.parametrize("n,m,warp", [(16, 0, True), (17, 0, False),
+                                      (4, 27, True), (4, 28, False),
+                                      (16, 15, True), (16, 16, False)])
+def test_rk4_warp_path_predicate(n, m, warp):
+    """The adjoint kernel takes the warp path's shapes, n <= 16 and 1+n+m
+    <= 32 (csrc/rk4_poly.cu's limits); past either, the backward
+    replays."""
+    assert warp_path(n, m) is warp
+
+
+@pytest.mark.parametrize("need", [(True, False, False), (True, False, True),
+                                  (True, True, True), (False, True, False)],
+                         ids=["theta", "theta_us", "all", "y0"])
+def test_rk4_meta_backward_is_the_adjoint_kernel(need):
+    """On meta tensors the backward takes the card's route: the gradients
+    asked for are shaped as their inputs, the adjoint kernel's work is
+    reported once (reads theta, us, the indices, ys and its cotangent;
+    writes what was asked), and nothing launches or replays."""
+    lib = make_library(3, 1, 3)
+    B, T = 8, 24
+    args = [torch.empty(s, device="meta", requires_grad=w) for s, w in zip(
+        ((2, B // 2, 3, lib.size), (2, B // 2, 3), (2, B // 2, T, 1)), need)]
+    seen = []
+    before = (rk4_poly_solve.launches, rk4_poly_solve.adjoint_launches,
+              rk4_poly_solve.replays)
+    with meta_sink(lambda name, **w: seen.append((name, w))):
+        ys = rk4_poly_solve(*args, dt=0.01, library=lib)
+        grads = torch.autograd.grad(ys.sum(),
+                                    [a for a in args if a.requires_grad])
+    assert [g.shape for g in grads] == [a.shape for a in args
+                                        if a.requires_grad]
+    assert [name for name, _ in seen] == ["rk4_poly", "rk4_adjoint"]
+    f32 = 4
+    ys_bytes = B * (T + 1) * 3 * f32
+    written = sum(a.numel() * f32 for a in args if a.requires_grad)
+    assert seen[1][1] == {
+        "flops": rk4_adjoint_flops(B, T, 3, lib.size, 3), "tf32_flops": 0.0,
+        "nbytes": (args[0].numel() + args[2].numel()) * f32
+        + lib.term_indices.size * 4 + 2 * ys_bytes + written}
+    assert (rk4_poly_solve.launches, rk4_poly_solve.adjoint_launches,
+            rk4_poly_solve.replays) == before
+
+
+def test_rk4_meta_backward_past_the_warp_path_replays():
+    """n = 17 is past the warp path: the backward replays the plain version
+    and reports no adjoint kernel; a replay on meta tensors is not counted
+    (the counter is the card's)."""
+    lib = make_library(17, 0, 1)
+    args = [torch.empty(s, device="meta", requires_grad=True)
+            for s in ((2, 17, lib.size), (2, 17), (2, 5, 0))]
+    seen = []
+    before = rk4_poly_solve.replays
+    with meta_sink(lambda name, **w: seen.append(name)):
+        ys = rk4_poly_solve(*args, dt=0.01, library=lib)
+        grads = torch.autograd.grad(ys.sum(), args)
+    assert [g.shape for g in grads] == [a.shape for a in args]
+    assert seen == ["rk4_poly"]
+    assert rk4_poly_solve.replays == before
+
+
+def test_cpu_rk4_backward_leaves_the_kernel_counters_alone():
+    """CPU tensors run the plain version forward and backward: neither the
+    adjoint kernel's count nor the replays' moves."""
+    lib, rk = _rk4_inputs(9, (2, 3), 3, 1, 3, 6)
+    args = [_t(rk[k], grad=True) for k in ("theta", "y0", "us")]
+    before = (rk4_poly_solve.launches, rk4_poly_solve.adjoint_launches,
+              rk4_poly_solve.replays)
+    torch.mean(rk4_poly_solve(*args, dt=0.01, library=lib) ** 2).backward()
+    assert all(a.grad is not None for a in args)
+    assert (rk4_poly_solve.launches, rk4_poly_solve.adjoint_launches,
+            rk4_poly_solve.replays) == before

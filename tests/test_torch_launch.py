@@ -10,8 +10,9 @@ tables (launch/{cells,opcount,dryrun,roofline,mesh}.py), on the CPU.
     output of the donated state aliases an argument, and the scan runs
     once a layer (and again where the backward recomputes it);
   * each hand-written kernel on meta tensors takes the card's route: its
-    outputs shaped, its work as kernels/work.py's formulas, its replayed
-    backward run, no launch counted;
+    outputs shaped, its work as kernels/work.py's formulas, its backward
+    run (the RK4 adjoint reported as a kernel, the others replayed), no
+    launch counted;
   * the parameter counts, `roofline_terms` and `render_table` against the
     JAX package's on the same inputs; the dry-run CLI's record keys (JAX's
     where they carry over), `skip_shapes`, and the rendered table.
@@ -138,10 +139,19 @@ def test_kernels_take_the_card_route_on_meta(kernel):
             ys = rk4_poly_solve(*args, dt=0.01, library=lib)
             assert ys.shape == (Bk, Tk + 1, 3)
             ys.sum().backward()
+            assert [a.grad.shape for a in args] == [a.shape for a in args]
             idx = lib.indices_on("meta")
             flops = work.rk4_flops(Bk, Tk, 3, lib.size, idx.shape[1])
             nbytes = sum(t.nbytes for t in (*args, idx, ys))
             tf32 = 0.0
+            # the backward is the adjoint kernel: reads theta, us, the
+            # indices, ys and its cotangent; writes the three gradients
+            assert oc.kernels["rk4_adjoint"] == {
+                "calls": 1, "tf32_flops": 0.0,
+                "flops": work.rk4_adjoint_flops(Bk, Tk, 3, lib.size,
+                                                idx.shape[1]),
+                "bytes": sum(t.nbytes for t in (args[0], args[2], idx, ys,
+                                                ys, *args))}
         else:
             Bs, H, Ts, K = 2, 4, 100, 16
             q, k, w = (torch.empty((Bs, H, Ts, K), **meta) for _ in range(3))
@@ -158,7 +168,8 @@ def test_kernels_take_the_card_route_on_meta(kernel):
     assert got["calls"] == 1
     assert got["flops"] == flops and got["tf32_flops"] == tf32
     assert got["bytes"] == nbytes
-    assert oc.flops > 0            # the replayed backward's products
+    # the replayed backward's products (the RK4 one is a kernel)
+    assert (oc.flops > 0) == (kernel != "rk4_poly")
     assert (gru_scan.launches, rk4_poly_solve.launches,
             linear_scan.launches) == before
 
