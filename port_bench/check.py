@@ -34,6 +34,15 @@ The numbers a limits file lists under `every_checked_tick` and
 `every_checked_query` have to be read on each (`unread`): a refit or guard
 routed past the observed entries reads nothing and is not correct.
 
+A federated server's shards are worker processes, which inherit no
+wrapper from this one: each worker runs a `Recorder` of its own on its
+`TwinServer` (workers.py installs it through the worker entry), records
+every tick from the barrier the parent sends before the check's ticks,
+and writes the records to a file once those ticks are over; `merged`
+lays the workers' records out as one recorder over every shard keeps
+them, so `evaluate` and the reference run unchanged.  `check_deploy` and `check_ring` read a worker's state through
+`snapshot_state()` on the wire.
+
 With `control=True` the reference itself, in TF32, stands in the
 program's place: the readings then say how far the nearest lower
 precision lands from float32.
@@ -174,6 +183,24 @@ class Recorder:
         self.calls = []
 
 
+def merged(per_shard: list) -> list:
+    """The records of recorders that each watched one shard (shard i's at
+    i, each shard its own index 0) as one recorder over every shard keeps
+    them: the ticks every shard recorded, each call under its shard."""
+    ticks = set.intersection(*({r["tick"] for r in recs}
+                               for recs in per_shard))
+    out = []
+    for t in sorted(ticks):
+        recs = [next(r for r in recs if r["tick"] == t) for recs in per_shard]
+        out.append({"tick": t,
+                    "pre": [r["pre"][0] for r in recs],
+                    "post": [r["post"][0] for r in recs],
+                    "calls": [(i, kind, c) for i, r in enumerate(recs)
+                              for _, kind, c in r["calls"]],
+                    "events": [r["events"][0] for r in recs]})
+    return out
+
+
 def query_state(server, row: int) -> dict:
     """What a what-if query of ring row `row` reads: its served models."""
     s = server.snapshot_state()
@@ -271,7 +298,10 @@ def _grad_from_moments(mu_out, mu_in):
 
 
 def _refit(rd: Readings, model: ref.Refit, call: dict, slots: list,
-           sparsify_after: int, control: bool):
+           sparsify_after: int, control: bool, pool: list):
+    """Each slot-step of one refit call held to the reference: its gaps
+    join the shard's `pool`, which `_pooled` reads once every checked tick
+    is in."""
     st = call["state"]
     params, opt = st["params"], st["opt"]
     keys = _leaf_keys(params)
@@ -291,38 +321,54 @@ def _refit(rd: Readings, model: ref.Refit, call: dict, slots: list,
         grad_g = {gk: _grad_from_moments(out["opt"]["mu"][gk[0]][gk[1]],
                                          state["mu"][gk]) for gk in keys}
         p_g = {gk: out["params"][gk[0]][gk[1]] for gk in keys}
-    # the loss of the median slot: a rollout that leaves the data's
-    # envelope has a loss that rounding moves by any amount
-    gaps = [ref.relative_gap(loss_g[f], loss_r[f]) for f in slots]
-    if gaps:
-        rd.add("refit_loss_rel", float(np.median(gaps)))
     # a coefficient at the sparsify mask's threshold may fall on either
     # side, and the gradient of the slot with it: such slots are judged by
     # their loss alone
     clear = model.mask_margin(params, call["y"], call["u"],
                               st["steps"] > sparsify_after) > MASK_BAND
-    # each slot's worst leaf; the call reads the median slot, since a
-    # kink met at rounding level (a ReLU at zero, the mask) moves one
-    # slot's gradient by any amount
-    grad_gap, step_gap = [], []
     for f in slots:
-        if not (float(loss_r[f]) <= DIVERGED_LOSS and bool(clear[f])):
-            continue
-        gnorm = {gk: float(grad_r[gk][f].double().norm()) for gk in keys}
-        med = float(np.median(list(gnorm.values())))
-        moved = [gk for gk in keys if gnorm[gk] >= 1e-3 * med]
-        dnorm = {gk: float((p_r[gk][f] - params[gk[0]][gk[1]][f])
-                           .double().norm()) for gk in moved}
-        dmed = float(np.median(list(dnorm.values())))
-        p0 = {gk: params[gk[0]][gk[1]][f] for gk in moved}
-        grad_gap.append(max(ref.norm_gap(grad_g[gk][f], grad_r[gk][f], med)
-                            for gk in moved))
-        step_gap.append(max(ref.norm_gap(p_g[gk][f] - p0[gk],
-                                         p_r[gk][f] - p0[gk], dmed)
-                            for gk in moved))
-    if grad_gap:
-        rd.add("refit_grad_rel", float(np.median(grad_gap)))
-        rd.add("refit_step_rel", float(np.median(step_gap)))
+        loss = float(loss_r[f])
+        # live: a step the reference takes (it zeroes the loss of one it
+        # skips, its loss or gradient not finite) on a rollout within the
+        # data's envelope
+        entry = {"live": 0.0 < loss <= DIVERGED_LOSS,
+                 "loss": ref.relative_gap(loss_g[f], loss_r[f])}
+        rd.seen.add("refit_loss_rel")
+        if loss <= DIVERGED_LOSS and bool(clear[f]):
+            # the slot's worst leaf
+            gnorm = {gk: float(grad_r[gk][f].double().norm()) for gk in keys}
+            med = float(np.median(list(gnorm.values())))
+            moved = [gk for gk in keys if gnorm[gk] >= 1e-3 * med]
+            dnorm = {gk: float((p_r[gk][f] - params[gk[0]][gk[1]][f])
+                               .double().norm()) for gk in moved}
+            dmed = float(np.median(list(dnorm.values())))
+            p0 = {gk: params[gk[0]][gk[1]][f] for gk in moved}
+            entry["grad"] = max(ref.norm_gap(grad_g[gk][f], grad_r[gk][f],
+                                             med) for gk in moved)
+            entry["step"] = max(ref.norm_gap(p_g[gk][f] - p0[gk],
+                                             p_r[gk][f] - p0[gk], dmed)
+                                for gk in moved)
+            rd.seen.update(("refit_grad_rel", "refit_step_rel"))
+        pool.append(entry)
+
+
+def _pooled(rd: Readings, pool: list) -> None:
+    """A shard's refit numbers: the median over its live slot-steps of
+    every checked tick (over all of them where none is live), since a
+    skipped step compares zeroes on both sides, a diverged rollout has a
+    loss that rounding moves by any amount, and a kink met at rounding
+    level (a ReLU at zero, the mask) moves one slot-step's gradient by any
+    amount."""
+    judged = [e for e in pool if e["live"]] or pool
+    if judged:
+        rd.add("refit_loss_rel", float(np.median([e["loss"]
+                                                  for e in judged])))
+    graded = [e for e in judged if "grad" in e]
+    if graded:
+        rd.add("refit_grad_rel", float(np.median([e["grad"]
+                                                  for e in graded])))
+        rd.add("refit_step_rel", float(np.median([e["step"]
+                                                  for e in graded])))
 
 
 SCORE_FLOOR = 1e-9     # guard scores are relative gaps down to this
@@ -342,6 +388,7 @@ def evaluate(recorder: Recorder, queries: list, tele: Telemetry, cfg: dict,
     band = 1e-3        # decisions are judged where the reference is clear
     nS = cfg["shards"]
     last_out: dict = {}            # shard -> the previous tick's last output
+    pools: dict = {}               # shard -> its refit slot-steps' gaps
     prev_tick = None
     for rec in recorder.records:
         rd.seen = set()
@@ -389,7 +436,8 @@ def evaluate(recorder: Recorder, queries: list, tele: Telemetry, cfg: dict,
                                               and torch.equal(c["u"][f], u)))
                     if train_seen == 0:
                         exact += _check_resets(rd, model, c, slots, control)
-                    _refit(rd, model, c, slots, s["sparsify_after"], control)
+                    _refit(rd, model, c, slots, s["sparsify_after"], control,
+                           pools.setdefault(sh, []))
                     train_seen += 1
                 elif kind == "recover":
                     th_r, pooled, margin = model.recover(
@@ -424,6 +472,8 @@ def evaluate(recorder: Recorder, queries: list, tele: Telemetry, cfg: dict,
                                           cfg, band, control)
         rec["read"] = set(rd.seen)
         prev_tick = rec["tick"]
+    for pool in pools.values():
+        _pooled(rd, pool)
     for q in queries:
         rd.seen = set()
         st = q["state"]

@@ -21,6 +21,20 @@ names in BENCHMARK.json; each per-layer metric is a reader of its own in
            plain reference once the servers are freed (check.py,
            reference.py; the limits in `limits/<cell>.json`).
 
+A federated configuration ("topology": "federated") serves through
+worker processes, which inherit none of this process's wrappers: the
+workers' entry is workers.py's, set by system.build while they start; it
+turns TF32 off and installs the recorder, the window's counters and the
+traced segment's profiler in each worker.  This process marks the
+window's end, the traced segment, the check's recorded ticks and their
+end by `worker_processes()` barriers; once `srv.close()` has joined the
+workers it reads what each wrote (records, stage times, dropped samples,
+peak memory, promote counts, its own ingest seconds a tick, trace events,
+and any module of JAX or the JAX package it held, which fails the run as
+one in this process does) and merges them as the in-process path reads
+them from its shards.  Its own per-tick readings add each tick's slowest
+worker (`TickDone.latency_s`).
+
 The last line of standard output is one JSON object; with --trace 0 its
 metrics are the cell's end-to-end metrics, with --trace 1 its per-layer
 metrics.  Without a CUDA card the run exits 1 and prints no result.
@@ -111,12 +125,13 @@ class Loop:
             self.q_us = query_inputs(self.q, cell.cfg["merinda"]["m"])
             self.q_next = int(np.random.default_rng([seed, 7])
                               .integers(self.n))
-        self.recorder = recorder
+        self.recorder = recorder   # None: a federated server's workers record
         self.tick_index = 0
         self.ticks, self.queries, self.kept_queries = [], [], []
         self.deployed = deployed   # [models, twins, n, L], from deploy()
         self.failed = 0
         self.annotate = None
+        self.workers = None        # workers.Host of a federated server
 
     def _range(self, name):
         import contextlib
@@ -139,24 +154,31 @@ class Loop:
             t0 = time.perf_counter()
             self.srv.ingest_many(batch)
             t1 = time.perf_counter()
-        if record:
-            self.recorder.begin()
-        recovers = self.recorder.recovers
+        rec = self.recorder
+        if record and rec is not None:
+            rec.begin()
+        recovers = rec.recovers if rec is not None else 0
         with self._range("bench.tick"):
             t2 = time.perf_counter()
             rep = self.srv.tick()
             self.sync()
             t3 = time.perf_counter()
         reports = rep.reports if hasattr(rep, "reports") else [rep]
-        if record:
-            self.recorder.end(g, reports)
+        if self.workers is not None and None in reports:
+            raise RuntimeError(f"a worker process died at tick {g}")
+        if record and rec is not None:
+            rec.end(g, reports)
         if measured:
-            self.ticks.append({"tick_s": t3 - t2, "ingest_s": t1 - t0,
-                               "samples": self.n * self.chunk,
-                               "promotes": self.recorder.recovers - recovers,
-                               "admitted": sum(len(r.admitted)
-                                               for r in reports),
-                               "events": sum(len(r.events) for r in reports)})
+            done = {"tick_s": t3 - t2, "ingest_s": t1 - t0,
+                    "samples": self.n * self.chunk,
+                    "events": sum(len(r.events) for r in reports)}
+            if rec is not None:
+                done.update(promotes=rec.recovers - recovers,
+                            admitted=sum(len(r.admitted) for r in reports))
+            else:       # promotes and admitted come from the workers' files
+                done.update(tick=g, worker_s=max(r.latency_s
+                                                 for r in reports))
+            self.ticks.append(done)
             if t3 - t2 > self.cell.cfg["server"]["deadline_s"]:
                 self.failed += 1
         self.tick_index += 1
@@ -286,7 +308,7 @@ def execute(cell, args, device):
     check observed."""
     import numpy as np
     import torch
-    from port_bench import check as chk, system, telemetry, work
+    from port_bench import check as chk, system, telemetry, work, workers
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, traffic = cell.cfg, cell.traffic
@@ -304,7 +326,11 @@ def execute(cell, args, device):
     ys, us = telemetry.fleet(args.seed, cfg["twins"], samples, traffic,
                              device)
     phases["telemetry"] = time.perf_counter() - T_START
-    srv = system.build(cfg, args.seed % 2 ** 31, device)
+    side = workers.Host(cfg["shards"]) if system.federated(cfg) else None
+    srv = system.build(cfg, args.seed % 2 ** 31, device,
+                       side.entry if side else None)
+    if side is not None:
+        side.srv = srv
     shards = system.shards(srv)
     deployed = deploy(srv, cfg, traffic, args.seed)
     deploy_bad = chk.check_deploy(shards, cfg)
@@ -313,8 +339,10 @@ def execute(cell, args, device):
         srv.ingest_many([(i, ys[i, :h], us[i, :h])
                          for i in range(cfg["twins"])])
     phases["server"] = time.perf_counter() - T_START
-    recorder = chk.Recorder(shards)
-    loop = Loop(srv, cell, ys, us, args.seed, recorder, deployed, device)
+    recorder = side if side is not None else chk.Recorder(shards)
+    loop = Loop(srv, cell, ys, us, args.seed,
+                None if side is not None else recorder, deployed, device)
+    loop.workers = side
     for _ in range(traffic["warmup_ticks"]):
         loop.step(measured=False)
     warm_ms = [round(1e3 * v, 3) for v in list(srv.latencies)]
@@ -336,16 +364,11 @@ def execute(cell, args, device):
     if loaded:
         fail(f"modules of JAX or the JAX package loaded: {loaded}", 3)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
-    stages = {}
-    for s in shards:
-        for stage, times in s.stage_times.items():
-            vals = list(times)[-len(loop.ticks):]
-            acc = stages.setdefault(stage, [0.0] * len(vals))
-            for i, v in enumerate(vals):
-                acc[i] += v
-    for i, t in enumerate(loop.ticks):
-        t["stages"] = {k: v[i] for k, v in stages.items()}
-    dropped = sum(int(s.dropped_samples) for s in shards)
+    if side is None:
+        stage_sums(loop.ticks, [s.stage_times for s in shards])
+        dropped = sum(int(s.dropped_samples) for s in shards)
+    else:
+        side.barrier(workers.WINDOW)
 
     trace = None
     if args.trace:
@@ -358,13 +381,31 @@ def execute(cell, args, device):
     rng = np.random.default_rng([args.seed, 11])
     for _ in range(int(rng.integers(0, c["skip"] + 1))):
         loop.step(measured=False)
+    if side is not None:
+        side.barrier(workers.CHECK)
     for _ in range(c["ticks"]):
         loop.step(measured=False, record=True)
     fed = loop.history + loop.tick_index * loop.chunk
     ring_bad = sum(chk.check_ring(s, cfg, chk.Telemetry(ys, us, cfg, traffic,
                                                         "cpu"), i, fed)
                    for i, s in enumerate(shards))
+    if side is not None:
+        side.barrier(workers.DUMP)
     srv.close()
+    if side is not None:
+        side.collect(device)
+        loaded = side.forbidden()
+        if loaded:
+            fail("modules of JAX or the JAX package loaded in the worker "
+                 f"processes: {loaded}", 3)
+        stage_sums(loop.ticks, side.stage_times())
+        dropped = side.dropped()
+        peak += sum(side.peaks())
+        for t in loop.ticks:
+            (t["promotes"], t["admitted"],
+             t["worker_ingest_s"]) = side.per_tick(t["tick"])
+        if trace is not None:
+            trace.merge(side.traces())
     del srv, shards, loop.srv
     recorder.shards = []       # the servers are freed before the reference
     if on_card:
@@ -431,44 +472,60 @@ def execute(cell, args, device):
         "involuntary_switches": ru1.ru_nivcsw - ru0.ru_nivcsw,
         "loadavg": list(os.getloadavg())}
     result["warmup_tick_ms"] = warm_ms
+    if side is not None:
+        result["workers"] = {
+            "count": cfg["shards"], "memory_peak_bytes": side.peaks(),
+            "coordinator_peak_bytes": int(peak - sum(side.peaks())),
+            "recorded_calls": side.recorded_calls(),
+            "host_cores": len(os.sched_getaffinity(0)),
+            "device_span_s": trace.span_s() if trace is not None else None}
     result["checks"] = checks
     return result, SimpleNamespace(recorder=recorder, tele=tele,
                                    queries=loop.kept_queries)
 
 
+def stage_sums(ticks: list, stage_times: list) -> None:
+    """Each tick's `stages`: every stage's host seconds summed over the
+    shards (`stage_times`, one per shard, the last len(ticks) of each)."""
+    stages = {}
+    for times_of in stage_times:
+        for stage, times in times_of.items():
+            vals = list(times)[-len(ticks):]
+            acc = stages.setdefault(stage, [0.0] * len(vals))
+            for i, v in enumerate(vals):
+                acc[i] += v
+    for i, t in enumerate(ticks):
+        t["stages"] = {k: v[i] for k, v in stages.items()}
+
+
 def traced_segment(loop, ticks: int):
     """`ticks` more ticks of the same loop under torch.profiler, with the
-    shapes each kernel entry point is called with."""
+    shapes each kernel entry point is called with.  A federated server's
+    workers run their own profiler over the same ticks, between two
+    barriers; their events are merged in once they have written them."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    from port_bench import system
+    from port_bench import system, workers
     from port_bench.trace import Trace
-    shapes: dict = {}
-    saved = []
-    for name, (mod, attr) in system.kernel_modules().items():
-        fn = getattr(mod, attr)
-        saved.append((mod, attr, fn))
-
-        def entry(*a, _fn=fn, _name=name, **k):
-            shapes.setdefault(_name, []).append(
-                [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)])
-            return _fn(*a, **k)
-        setattr(mod, attr, entry)
-    loop.annotate = record_function
+    side = loop.workers
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    try:
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(ticks):
-                loop.step(measured=False)
-            loop.sync()
-            window = time.perf_counter() - t0
-    finally:
-        loop.annotate = None
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+    if side is not None:
+        side.barrier(workers.TRACE_ON)
+    with system.kernel_shapes({}) as shapes:
+        loop.annotate = record_function
+        try:
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(ticks):
+                    loop.step(measured=False)
+                loop.sync()
+                window = time.perf_counter() - t0
+        finally:
+            loop.annotate = None
+            if side is not None:
+                side.barrier(workers.TRACE_OFF)
     return Trace.read(prof, window, ticks, shapes)
 
 

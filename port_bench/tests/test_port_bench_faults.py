@@ -158,3 +158,18 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
     x = torch.tensor([1.0 + 2 ** -10, 1.0 + 2 ** -11 + 2 ** -20,
                       1.0 + 2 ** -12], dtype=torch.float32)
     assert tf32_round(x).tolist() == [1.0 + 2 ** -10, 1.0 + 2 ** -10, 1.0]
+
+
+def test_skipped_slot_steps_do_not_hide_the_live_ones():
+    """Most of a shard's slot-steps skipped (zeroes on both sides) and the
+    few live ones wrong: the refit numbers read the live ones."""
+    rd = check.Readings()
+    check._pooled(rd, [{"live": False, "loss": 0.0, "grad": 0.0,
+                        "step": 0.0}] * 55
+                  + [{"live": True, "loss": 0.5, "grad": 1.0,
+                      "step": 1.0}] * 9)
+    assert rd.v == {"refit_loss_rel": 0.5, "refit_grad_rel": 1.0,
+                    "refit_step_rel": 1.0}
+    rd = check.Readings()
+    check._pooled(rd, [{"live": False, "loss": 0.0}] * 4)
+    assert rd.v == {"refit_loss_rel": 0.0}

@@ -4,7 +4,10 @@ The device events are read from the profiler's raw events, as
 `chip_smoke.py::_device_events` does (the profiler's own `key_averages`
 builds an object for every host event too, which is slow for hundreds of
 thousands of launches).  One stream: kernels do not overlap, but busy time
-is still taken as the union of the events' intervals.
+is still taken as the union of the events' intervals.  A federated
+server's workers trace themselves; `merge` adds their events, which share
+the host's clock, so that busy time is the union over every process on
+the card.
 """
 from __future__ import annotations
 
@@ -49,6 +52,27 @@ class Trace:
         t.host.sort()
         t.ranges.sort()
         return t
+
+    def merge(self, parts: list) -> "Trace":
+        """This trace with other processes' device and host events and
+        kernel-entry shapes added (each part a dict of `device`, `host`,
+        `shapes`, as `read` makes them)."""
+        for part in parts:
+            self.device.extend(part["device"])
+            self.host.extend(part["host"])
+            for name, shapes in part["shapes"].items():
+                self.shapes.setdefault(name, []).extend(shapes)
+        self.device.sort()
+        self.host.sort()
+        return self
+
+    def span_s(self) -> float:
+        """Seconds from the first device operation's start to the last's
+        end."""
+        if not self.device:
+            return 0.0
+        return (max(s + d for s, d, _ in self.device)
+                - self.device[0][0]) / 1e9
 
     # ------------------------------------------------------------------ #
     def busy_s(self) -> float:
